@@ -19,7 +19,7 @@ FIXED per-device load (weak scaling) and records, per device count:
 
 Usage:  python benchs/bench_scaling.py [--out BENCH_SCALING.json]
         (forces JAX_PLATFORMS=cpu with 8 virtual devices; run it in a fresh
-        process, not after TPU work.)
+        process, not after device work.)
 
 Reference protocol analog: the thread sweep via STENOS_THREADS in
 /root/reference/benchs/bench_all.cpp:271,292-298.
@@ -37,7 +37,6 @@ if "jax" not in sys.modules:
         os.environ.get("XLA_FLAGS", "")
         + " --xla_force_host_platform_device_count=8"
     )
-    os.environ.setdefault("STENOS_PALLAS", "0")
 
 import numpy as np  # noqa: E402
 
@@ -75,12 +74,12 @@ def run(per_dev_sb: int = 8, sb: int = 131072, bpp: int = 4,
                    "weak scaling is T(nd) = nd*T(1); overhead_factor is the "
                    "distribution machinery's added cost on top of that.",
                    "ragged overhead on CPU is the reduce_scatter executing "
-                   "as real byte-adds (nd*S per chip) — on a pod that is "
-                   "ICI DMA; the traffic model is the hardware-relevant "
-                   "comparator.",
-                   "the gathered variant's single-chip terminal assembly "
-                   "(its real-pod serial fraction) cannot show up on a "
-                   "1-core host where everything is serial anyway.",
+                   "as real byte-adds (nd*S per device) — on GPUs that is "
+                   "interconnect traffic; the traffic model is the "
+                   "hardware-relevant comparator.",
+                   "the gathered variant's single-device terminal assembly "
+                   "(its serial fraction on real devices) cannot show up "
+                   "on a 1-core host where everything is serial anyway.",
                ],
                "points": []}
     t1 = {}
@@ -92,14 +91,12 @@ def run(per_dev_sb: int = 8, sb: int = 131072, bpp: int = 4,
         mesh = make_mesh(nd)
 
         def ragged():
-            f, ln = compress_device_sharded(data, bpp, 1, mesh,
-                                            interpret=True, kernel="xla")
+            f, ln = compress_device_sharded(data, bpp, 1, mesh)
             jax.block_until_ready(f)
             return f, ln
 
         def gathered():
-            f, ln = compress_device_sharded_gathered(data, bpp, 1, mesh,
-                                                     interpret=True)
+            f, ln = compress_device_sharded_gathered(data, bpp, 1, mesh)
             jax.block_until_ready(f)
             return f, ln
 
@@ -115,9 +112,7 @@ def run(per_dev_sb: int = 8, sb: int = 131072, bpp: int = 4,
         t1.setdefault("gathered", {}).setdefault(nd, tg)
 
         # real shapes for the traffic accounting
-        segs, seg_lens = encode_segments_sharded(mesh, data, bpp, 2,
-                                                 interpret=True,
-                                                 kernel="xla")
+        segs, seg_lens = encode_segments_sharded(mesh, data, bpp, 2)
         seg_lens = np.asarray(seg_lens, np.int64)
         C_loc = int(segs.shape[1])
         total = 8 + int(seg_lens.sum())

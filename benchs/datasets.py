@@ -18,6 +18,9 @@ STATISTICS rather than being a toy tiling:
           exactly the byte-plane structure mesh compressors exploit.
 - ts:     double random walk + diurnal seasonality + regime jumps —
           smooth high-byte planes, noisy low ones.
+- records: fixed 64-byte rows drawn from a pool of 400 with a skewed
+          byte alphabet — match-rich rows whose literals are still
+          Huffman-codable (the zstd sequences path).
 
 Every family is deterministic (fixed seed / frozen file): ratios are
 comparable across rounds.
@@ -93,6 +96,13 @@ def ts_f64(n: int, seed: int = 17) -> bytes:
         + 0.05 * np.sin(2 * np.pi * t / 3600)
     jumps = np.cumsum(rng.random(nd) < 1e-5) * 0.8
     return (100.0 + walk + season + jumps).astype("<f8").tobytes()
+
+
+def records_u8(n: int, seed: int = 13) -> bytes:
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(0, 40, (400, 64), np.uint8)
+    idx = rng.integers(0, 400, n // 64 + 1)
+    return pool[idx].reshape(-1)[:n].tobytes()
 
 
 def families(n: int):

@@ -1,5 +1,5 @@
-"""stenos-tpu: a TPU-native lossless codec framework for binary structured
-data, format-compatible with the C++ `stenos` library.
+"""stenos-tpu: a JAX lossless codec framework for binary structured data,
+format-compatible with the C++ `stenos` library.
 
 Public API mirrors stenos.h: `compress`, `decompress`, `get_info`,
 `compress_bound`, plus the array-level `CompressedArray` container (cvector
@@ -33,31 +33,29 @@ __version__ = "0.1.0"
 
 
 def default_engine():
-    """Backend selection — the TPU-world analog of the reference's CPUID
-    runtime dispatch (simd.h:199-258): JaxEngine when an accelerator is
-    present, the native-C++/numpy host path otherwise (None)."""
-    try:
-        import jax
+    """Backend selection — the analog of the reference's CPUID runtime
+    dispatch (simd.h:199-258): JaxEngine when JAX's default device is an
+    accelerator, the native-C++/numpy host path otherwise (None)."""
+    import jax
 
-        if jax.devices()[0].platform not in ("cpu",):
-            from .engine_jax import JaxEngine
+    if jax.devices()[0].platform != "cpu":
+        from .engine_jax import JaxEngine
 
-            return JaxEngine()
-    except Exception:
-        pass
+        return JaxEngine()
     return None
 
-def compress_sharded(data, bytesoftype: int, level: int = 1, mesh=None,
-                     interpret: bool | None = None) -> bytes:
-    """Multi-chip frame compression over a device mesh (see
+
+def compress_sharded(data, bytesoftype: int, level: int = 1,
+                     mesh=None) -> bytes:
+    """Multi-device frame compression over a device mesh (see
     parallel/api.py); also reachable as compress(..., mesh=mesh)."""
     from .parallel.api import compress_sharded as _cs
 
-    return _cs(data, bytesoftype, level, mesh, interpret)
+    return _cs(data, bytesoftype, level, mesh)
 
 
 def decompress_sharded(frame, bytesoftype: int, mesh=None):
-    """Multi-chip frame decompression over a device mesh (see
+    """Multi-device frame decompression over a device mesh (see
     parallel/api.py); also reachable as decompress(..., mesh=mesh)."""
     from .parallel.api import decompress_sharded as _ds
 

@@ -1,10 +1,10 @@
 """Vectorized per-plane analysis of the stenos block codec.
 
-This module is the TPU-first reformulation of the reference's per-row scalar
+This module is the vector reformulation of the reference's per-row scalar
 SIMD loop (`find_pack_bits_params`, block_compress.h:385-535): instead of one
 16x16 transpose + scalar reductions per plane, every plane of every block of a
 whole superblock batch is analyzed at once with pure array reductions, which
-XLA maps onto the VPU (8x128 lanes) directly.
+XLA fuses into a few device loops.
 
 Works with either numpy or jax.numpy (pass the module as `xp`); all
 integer math is int32 with explicit mod-256 wraps so semantics are identical

@@ -2,7 +2,7 @@
 
 Given the analysis results, build fixed-shape padded section contents +
 lengths; callers compute offsets by cumsum and scatter into the output
-buffer. This two-pass size→offset→scatter structure is the TPU-idiomatic
+buffer. This two-pass size→offset→scatter structure is the vector
 replacement for the reference's pointer-walking emitters
 (encode16x16_generic, block_compress.h:739-806).
 """
@@ -13,7 +13,7 @@ def compact16(xp, rows, keep):
 
     Sort-free formulation that works identically in numpy and jnp: target
     position of kept element c is its exclusive prefix count; scatter via
-    one-hot matmul (16x16, cheap and TPU-friendly).
+    one-hot matmul (16x16, cheap on any backend).
     """
     import numpy as _np
 

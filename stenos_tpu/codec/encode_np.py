@@ -4,7 +4,7 @@ This is the vectorized reference implementation used for tests and as the CPU
 fallback path; the device (jnp/Pallas) encoder in encode_jax.py shares the
 same analysis code (codec/analyze.py) and emission layout.
 
-Emission strategy (TPU-friendly two-pass, also used on device): compute every
+Emission strategy (vector two-pass, also used on device): compute every
 section's length, exclusive-cumsum into offsets, then scatter each
 width-class of sections into the output buffer — no pointer walking.
 """

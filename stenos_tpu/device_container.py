@@ -1,13 +1,13 @@
-"""Device-resident compressed array: the TPU-native cvector mode.
+"""Device-resident compressed array.
 
 Where container.CompressedArray keeps compressed chunks in HOST memory (the
-drop-in cvector equivalent), this container keeps them in HBM: data lives as
-compressed frame records plus the decode index the encode kernel emits
-(ops/encode_pallas.encode_slabs_index), and slabs decompress on demand with
-the Pallas decode kernel — no host byte traffic in either direction. This is
-the cvector analog for device-scale working sets (checkpoint shards,
-cold activations, archived KV blocks): memory_footprint is the compressed
-HBM bytes, access is slab-granular.
+drop-in cvector equivalent), this container keeps them in device memory:
+data lives as compressed frame records plus the decode index the encoder
+emits (engine_jax.encode_records_body with_index), and slabs decompress on
+demand with the derive-index decoder — no host byte traffic in either
+direction. This is the cvector analog for device-scale working sets
+(checkpoint shards, cold activations, archived KV blocks):
+memory_footprint is the compressed device bytes, access is slab-granular.
 
 Interop: serialize() emits a standard stenos frame (custom-blocksize header,
 stenos.h:159-168) decodable by the C++ reference; deserialize() adopts a
@@ -15,20 +15,15 @@ frame via the batched host parser. Mirrors cvector's serialize contract
 (cvector.hpp:3034-3193) at slab granularity.
 
 Cost model: the random-access index is ONE int32 per 256-byte plane
-(offset | plane-code<<24) = 1.6% of the uncompressed size; the decode
-kernel derives the row records from the stream's own header bytes in VMEM
-(decode_pallas derive mode), so no rowtab sidecar exists in HBM.
+(offset | plane-code<<24) = 1.6% of the uncompressed size; the decoder
+derives the row records from the stream's own header bytes, so no row
+table is stored.
 """
 
 import numpy as np
 
 import jax
 import jax.numpy as jnp
-
-
-def _interp() -> bool:
-    # Pallas kernels compile only on TPU; CPU (tests) uses interpret mode
-    return jax.default_backend() != "tpu"
 
 
 class DeviceCompressedArray:
@@ -39,23 +34,20 @@ class DeviceCompressedArray:
     """
 
     def __init__(self, dtype, slab_bytes: int, nbytes: int, rows, totals,
-                 plane_off, tail: bytes, plane_order: str = "jb"):
+                 plane_off, tail: bytes):
         self.dtype = np.dtype(dtype)
         self.slab_bytes = slab_bytes
         self.nbytes = nbytes
         self._rows = rows            # (n_slabs, rb) uint8, device
         self._totals = totals        # (n_slabs,) int32, host numpy
         self._plane_off = plane_off  # (n_slabs, P) i32, off | code<<24
-        # plane ordering of _plane_off: 'jb' (encoder-native) or 'bj'
-        # (host-parser/stream order, adoption path)
-        self._order = plane_order
         self._tail = tail            # bytes beyond the last full slab
         # original compressed records (host bytes), kept when adopting an
         # external frame whose virtual stream differs from its record bytes
         # (LZ/COPY blocks inlined by the parser); serialize() prefers these
         self._records = None
         # optional packed device entropy stage (records huffman-coded in
-        # HBM; _rows dropped when active)
+        # device memory; _rows dropped when active)
         self._entropy = None
 
     # ---------------------------------------------------------- construct
@@ -67,19 +59,19 @@ class DeviceCompressedArray:
 
         entropy=True adds the device entropy stage on top of the block
         codec (the BLOCK_ZSTD analog for device-resident data): slab
-        records pack into shared 128 KiB huffman blocks encoded by the
-        Pallas coder, and reads huffman-decode on device (anchored kernel)
-        before the block decode — no host byte traffic in either
-        direction. See _EntropyStore."""
-        from .engine_jax import _bucket125
-        from .ops.encode_pallas import encode_slabs_index_jit, slab_nb
+        records pack into shared 128 KiB huffman blocks, and reads
+        huffman-decode on device (anchored decoder) before the block
+        decode — no host byte traffic in either direction. See
+        _EntropyStore."""
+        from .engine_jax import _bucket125, encode_records_jit, rounds
 
         a = np.asarray(arr)
         dtype = a.dtype
         bpp = dtype.itemsize
         # nb must be a power of two <= 128 so serialize()'s custom-shift
         # frame header (slab = block << shift) is exactly representable;
-        # wide elements get smaller slabs (kernel VMEM scales with bpp*nb)
+        # wide elements get smaller slabs (encode working set scales with
+        # bpp*nb)
         cap = min(128, max(8, 1024 // bpp))
         nb = 1
         while nb * 2 <= cap:
@@ -89,8 +81,6 @@ class DeviceCompressedArray:
             while nb * 2 <= min(slab_elems // 256, cap):
                 nb *= 2
         slab_elems = nb * 256
-        if slab_nb(nb) != nb:
-            raise ValueError(f"slab of {nb} blocks exceeds the kernel gate")
         slab_bytes = slab_elems * bpp
         raw = a.view(np.uint8).reshape(-1)
         nbytes = len(raw)
@@ -100,12 +90,15 @@ class DeviceCompressedArray:
             return cls(dtype, slab_bytes, nbytes, None, np.zeros(0, np.int32),
                        None, tail)
         batch = raw[: n_slabs * slab_bytes].reshape(n_slabs, slab_bytes)
-        rows, totals, _, _, po = encode_slabs_index_jit(
-            jnp.asarray(batch), bpp, block_level, _interp())
-        totals = np.asarray(totals)
-        rb = min(_bucket125(int(totals.max()) + 512), rows.shape[1])
-        rows = jnp.asarray(rows[:, :rb])  # drop padding beyond the bucket
-        self = cls(dtype, slab_bytes, nbytes, rows, totals, po, tail, "jb")
+        parts = [encode_records_jit(jnp.asarray(batch[i : i + r]), bpp,
+                                    block_level, with_index=True)
+                 for i, r in rounds(n_slabs, slab_bytes)]
+        totals = np.concatenate([np.asarray(p[1]) for p in parts])
+        rb = min(_bucket125(int(totals.max()) + 512), parts[0][0].shape[1])
+        # drop padding beyond the bucket
+        rows = jnp.concatenate([p[0][:, :rb] for p in parts])
+        po = jnp.concatenate([p[4] for p in parts])
+        self = cls(dtype, slab_bytes, nbytes, rows, totals, po, tail)
         if entropy:
             self._entropy = _EntropyStore.pack(rows, totals, rb)
             if self._entropy is not None:
@@ -116,8 +109,8 @@ class DeviceCompressedArray:
     def deserialize(cls, frame: bytes, dtype):
         """Adopt a standard stenos frame (any producer, incl. the C++
         reference) without decompressing: host parses the decode index, the
-        payloads go to HBM. Non-BLOCK methods fall back via frame.decompress
-        then re-compress."""
+        payloads go to device memory. Frames with other methods are
+        decompressed by frame.decompress and re-compressed."""
         from . import frame as fr
         from .engine_jax import _bucket125
         from .native import lib as native
@@ -125,7 +118,7 @@ class DeviceCompressedArray:
         dtype = np.dtype(dtype)
         bpp = dtype.itemsize
         dsize, sb, pos = fr.get_info(frame, bpp)
-        ok = native is not None and sb % (256 * bpp) == 0
+        ok = sb % (256 * bpp) == 0
         offs, csizes = [], []
         p = pos
         n_full = dsize // sb
@@ -151,13 +144,12 @@ class DeviceCompressedArray:
         tail = b""
         if dsize > n_full * sb:  # short last superblock: decode on host
             tail = bytes(fr.decompress(frame, bpp)[n_full * sb :])
-        # note: parsed offsets are payload-relative; the kernel contract is
-        # record-relative (4-byte header included) — prepend headers.
+        # note: parsed offsets are payload-relative; the container's rows
+        # are records (4-byte header included) — prepend headers.
         # rows hold the VIRTUAL stream (length vlens[i], >= csize when LZ
         # blocks were inlined); the original records are kept separately so
         # serialize() re-emits the adopted frame bytes verbatim.
-        # width stays a multiple of 128 (decode kernel reshapes to 128-lanes)
-        rows = np.zeros((n_full, -(-(row_bytes + 4) // 128) * 128), np.uint8)
+        rows = np.zeros((n_full, row_bytes + 4), np.uint8)
         totals = np.zeros(n_full, np.int32)
         records = []
         for i in range(n_full):
@@ -171,7 +163,7 @@ class DeviceCompressedArray:
         po = (((plane_off & 0xFFFFFF) + 4) | (plane_off & ~0xFFFFFF)).astype(
             np.int32)
         self = cls(dtype, sb, dsize, jnp.asarray(rows), totals,
-                   jnp.asarray(po), tail, "bj")
+                   jnp.asarray(po), tail)
         self._records = records
         return self
 
@@ -188,12 +180,11 @@ class DeviceCompressedArray:
     def slab(self, i: int):
         """Decode slab i -> (slab_bytes,) uint8 jax array, device-resident
         (bitcast to the element dtype on device as needed)."""
-        words = self._decode_range(i, i + 1)
-        b4 = jax.lax.bitcast_convert_type(words, jnp.uint8)
-        return b4.reshape(-1)
+        return self._decode_range(i, i + 1).reshape(-1)
 
     def _decode_range(self, s0: int, s1: int):
-        from .ops.decode_pallas import decode_slabs_derive_jit
+        """Slabs [s0, s1) -> (s1 - s0, slab_bytes) uint8 on device."""
+        from .engine_jax import decode_slabs_derive_jit
 
         nb = self.slab_bytes // (256 * self.dtype.itemsize)
         if self._entropy is not None:
@@ -201,15 +192,16 @@ class DeviceCompressedArray:
         else:
             vbufs = self._rows[s0:s1]
         return decode_slabs_derive_jit(
-            vbufs, self._plane_off[s0:s1],
-            self.dtype.itemsize, nb, self._order, _interp())
+            vbufs, self._plane_off[s0:s1], self.dtype.itemsize, nb)
 
     def to_array(self) -> np.ndarray:
         out = np.empty(self.nbytes, np.uint8)
-        if self.n_slabs:
-            words = self._decode_range(0, self.n_slabs)
-            body = np.ascontiguousarray(np.asarray(words)).view(np.uint8)
-            out[: self.n_slabs * self.slab_bytes] = body.reshape(-1)
+        sb = self.slab_bytes
+        from .engine_jax import rounds
+
+        for i, r in rounds(self.n_slabs, sb):
+            out[i * sb : (i + r) * sb] = np.asarray(
+                self._decode_range(i, i + r)).reshape(-1)
         if self._tail:
             out[self.nbytes - len(self._tail) :] = np.frombuffer(
                 self._tail, np.uint8)
@@ -227,8 +219,7 @@ class DeviceCompressedArray:
                 off = b - self.n_slabs * self.slab_bytes
                 return np.frombuffer(self._tail, self.dtype,
                                      count=1, offset=off)[0]
-            words = self._decode_range(s, s + 1)
-            body = np.ascontiguousarray(np.asarray(words)).view(np.uint8)
+            body = np.asarray(self._decode_range(s, s + 1))
             off = b - s * self.slab_bytes
             return np.frombuffer(body.reshape(-1)[off : off + esize].tobytes(),
                                  self.dtype)[0]
@@ -239,7 +230,7 @@ class DeviceCompressedArray:
 
     # ------------------------------------------------------------ metrics
     def memory_footprint(self) -> int:
-        """Compressed HBM bytes + index (the cvector memory_footprint
+        """Compressed device bytes + index (the cvector memory_footprint
         analog, cvector.hpp:1886-1895)."""
         if self._entropy is not None:
             e = self._entropy
@@ -304,10 +295,10 @@ class _EntropyStore:
 
     Slab records concatenate into shared 128 KiB huffman blocks (the
     BLOCK_ZSTD residual-entropy idea, stenos.cpp:582-603, restructured for
-    fixed kernel shapes): each block's four 32 KiB streams encode with the
-    Pallas huffman coder (anchors emitted for free), and reads decode the
-    covering blocks with the anchored decode kernel — compressed bytes,
-    anchors and tables all stay in HBM. Blocks whose table degenerates or
+    fixed shapes): each block's four 32 KiB streams encode with the device
+    huffman coder (anchors emitted for free), and reads decode the
+    covering blocks with the anchored decoder — compressed bytes, anchors
+    and tables all stay in device memory. Blocks whose table degenerates or
     that don't shrink stay raw (flag 0). Random access costs the 1-2
     entropy blocks covering the slab's span."""
 
@@ -318,7 +309,7 @@ class _EntropyStore:
         # words/sizes/anchors/tabs hold rows for CODED blocks only (4
         # streams per coded block, in block order); raw-flagged blocks live
         # exclusively in self.raw
-        self.words = words        # (ncoded*4, wbucket/4) int32, device
+        self.words = words        # (ncoded*4, wbucket/4) uint32, device
         self.sizes = sizes        # (ncoded*4,) host
         self.anchors = anchors    # (ncoded*4, 256) int32, device
         self.tabs = tabs          # (ncoded*4, 304) int32, device
@@ -332,13 +323,11 @@ class _EntropyStore:
 
     @classmethod
     def pack(cls, rows, totals, rb):
-        import jax
-
         from .engine_jax import _frame_assemble
-        from .entropy.huff_pallas import (encode_streams_device,
+        from .entropy.huff_device import (decode_tables,
+                                          encode_streams_device,
                                           histogram_device)
         from .entropy.huffman import build_ctables_batch, code_lengths_batch
-        from .entropy.huff_decode_pallas import decode_tables
 
         totals = np.asarray(totals)
         offs = (np.cumsum(totals) - totals).astype(np.int32)
@@ -353,15 +342,14 @@ class _EntropyStore:
                                  np.zeros(8, np.uint8),
                                  cap + rows.shape[1])[:cap]
         blocks = concat.reshape(nblk, cls.BLOCK)
-        hist = np.asarray(histogram_device(blocks, _interp()))
+        hist = np.asarray(histogram_device(blocks))
         lens_all = code_lengths_batch(hist)
         codes_all = build_ctables_batch(lens_all)
         luts = (codes_all.astype(np.int32)
                 | (lens_all.astype(np.int32) << 11))
         streams = blocks.reshape(nblk * 4, cls.BLOCK // 4)
         words, sizes, anchors = encode_streams_device(
-            streams, jnp.asarray(np.repeat(luts, 4, axis=0)), _interp(),
-            with_anchors=True)
+            streams, jnp.asarray(np.repeat(luts, 4, axis=0)))
         sizes = np.asarray(sizes)
         flags = np.ones(nblk, bool)
         raw = {}
@@ -375,7 +363,7 @@ class _EntropyStore:
             raw[b] = blocks[b]
         if not flags.any():
             return None
-        # keep only the coded blocks' rows in HBM: raw-flagged blocks are
+        # keep only the coded blocks' rows on device: raw-flagged blocks are
         # served from self.raw, so their word/anchor/table rows would be
         # dead weight in the footprint and the profitability test
         coded = np.flatnonzero(flags)
@@ -399,9 +387,7 @@ class _EntropyStore:
 
     def decode_blocks(self, b0: int, b1: int):
         """-> ((b1-b0) * BLOCK,) uint8 device (+rb zero slack appended)."""
-        import jax
-
-        from .entropy.huff_decode_pallas import decode_streams_device
+        from .entropy.huff_device import decode_streams_device
 
         coded = [b for b in range(b0, b1) if self.flags[b]]
         dec = None
@@ -413,8 +399,8 @@ class _EntropyStore:
             wbytes = jax.lax.bitcast_convert_type(w, jnp.uint8).reshape(
                 ns, -1)
             syms = decode_streams_device(
-                wbytes, self.anchors[ridx], self.tabs[ridx], _interp())
-            dec = syms.astype(jnp.uint8).reshape(len(coded), self.BLOCK)
+                wbytes, self.anchors[ridx], self.tabs[ridx])
+            dec = syms.reshape(len(coded), self.BLOCK)
         parts = []
         j = 0
         for b in range(b0, b1):

@@ -1,9 +1,10 @@
-"""TPU-native entropy stage: RFC 8878 (zstd) frame encoder.
+"""Device entropy stage: RFC 8878 (zstd) frame encoder.
 
 The reference delegates its entropy stage to libzstd (zstd_wrapper.h); this
-package reimplements the encoder the TPU way (SURVEY.md §7 step 4): Huffman
-table construction and tree serialization are per-superblock host metadata
-(tiny), while the bulk bitstream encoding runs as a Pallas kernel. Output is
+package reimplements the encoder for the device (SURVEY.md §7 step 4):
+Huffman table construction and tree serialization are per-superblock host
+metadata (tiny), while the bulk bitstream encoding runs on the device
+(huff_device.py). Output is
 standard zstd — validated by cross-decoding with libzstd — so frames remain
 decodable by the C++ reference.
 

@@ -6,14 +6,14 @@ TRANSPOSED_DELTA_ZSTD (and method-5 residuals). Two tiers:
 1. Literals-only sidecar frames (the common output of
    encode_frame_device): all-device — the host walks only the
    frame/block/section headers (O(metadata)) and the Huffman bitstreams
-   decode on the TPU (huff_decode_pallas).
+   decode on the device (huff_device).
 2. Sequence-bearing and foreign (libzstd-produced) frames: the host does
    the O(nseq) index work — native FSE sequence decode (stn_zstd_seqs)
-   compiled into a W-chunked copy-op program (stn_seq_ops); the TPU
+   compiled into a W-chunked copy-op program (stn_seq_ops); the device
    executes the bulk match reconstruction (seq_exec.run_programs) and the
    result stays in HBM for the follow-on unshuffle / delta_inv. Literal
    bytes of ANY block with sidecar anchors — sequence-bearing included
-   (zstd_frame._block_anchor_entry) — decode on the TPU too and are
+   (zstd_frame._block_anchor_entry) — decode on the device too and are
    patched into the staged buffer on-device; only anchor-less blocks'
    literals (foreign frames) decode on the host.
 
@@ -23,11 +23,13 @@ to host libzstd — the graceful-degradation ladder of stenos.cpp:681-753.
 
 import numpy as np
 
+import jax
+
 from .sidecar import split_sidecar
 from .zstd_parse import parse_frame
 
 BLOCK_MAX = 131072
-W = 1024  # op chunk: 1 TPU vreg row of bytes
+W = 1024  # op chunk: bytes copied per sequence op
 
 
 def _parse_device_block(payload: bytes, start: int, bsize: int):
@@ -88,16 +90,15 @@ def _lit_spans(payload, lit):
             (p + j1 + j2 + j3, s4)]
 
 
-def _batch_decode_streams(payload, jobs, interpret):
+def _batch_decode_streams(payload, jobs):
     """Batch the anchored 4-stream Huffman decode. jobs: list of
     (spans, (lens, anchors)) — one per block, 4 streams each. Returns a
     (4 * len(jobs), 32768) uint8 device array of decoded symbols (each
     stream's valid prefix is its own symbol count; the rest is garbage
     segments driven by zero anchors)."""
-    import jax
     import jax.numpy as jnp
 
-    from .huff_decode_pallas import decode_streams_device, decode_tables
+    from .huff_device import decode_streams_device, decode_tables
 
     ns = len(jobs) * 4
     eb = max(max(ln for spans, _ in jobs for (_, ln) in spans), 1)
@@ -112,15 +113,11 @@ def _batch_decode_streams(payload, jobs, interpret):
             sb[4 * b + s, :ln] = pv[off : off + ln]
             anch[4 * b + s] = anchors[s]
             tabs[4 * b + s] = tab[0]
-    dev = jax.devices()[0]
-    out = decode_streams_device(
-        jax.device_put(jnp.asarray(sb), dev),
-        jax.device_put(jnp.asarray(anch), dev),
-        jax.device_put(jnp.asarray(tabs), dev), interpret)
-    return out.astype(jnp.uint8)
+    return decode_streams_device(jnp.asarray(sb), jnp.asarray(anch),
+                                 jnp.asarray(tabs))
 
 
-def _decode_all_device(payload, dsize, blocks, entries, interpret):
+def _decode_all_device(payload, dsize, blocks, entries):
     """Tier 1: every block a full-size literals-only device block."""
     nfull = 0
     jobs = []
@@ -134,105 +131,44 @@ def _decode_all_device(payload, dsize, blocks, entries, interpret):
         nfull += 1
     if nfull * BLOCK_MAX != dsize:
         return None
-    return _batch_decode_streams(payload, jobs, interpret).reshape(dsize)
+    return _batch_decode_streams(payload, jobs).reshape(dsize)
 
 
-_PATCH_FNS = {}  # bounded: distinct patterns evict FIFO past _PATCH_CAP
-_PATCH_CAP = 64
+@jax.jit
+def _scatter_rows(buf, flat, dst, src):
+    return buf.at[dst].set(flat[src], mode="drop", unique_indices=True)
 
 
 def _patch_from_rows(buf, rows, pspecs):
     """Assemble each patch's literal bytes from its 4 decoded stream rows
-    and write them into buf — ONE fused dispatch (pspecs is static per
-    frame shape; compiled once per pattern, cache capped so a serving
-    process decoding many distinct frame shapes doesn't accrete
-    executables).
+    and write them into buf — one gather + scatter on device, driven by
+    host-built index arrays padded to a power of two (so a few compiled
+    shapes serve every frame).
 
-    pspecs: tuple of (row_base, n, off): streams rows[row_base:row_base+4]
+    pspecs: iterable of (row_base, n, off): streams rows[row_base:row_base+4]
     carry ceil(n/4)/…/n-3*ceil(n/4) valid symbols (the compress_literals
     split); the concatenation lands at buf[off : off+n]."""
-    import jax
-    import jax.numpy as jnp
-
-    fn = _PATCH_FNS.get(pspecs)
-    if fn is None:
-        def body(buf, rows):
-            for rb, n, off in pspecs:
-                s1 = (n + 3) // 4
-                lits = jnp.concatenate(
-                    [rows[rb, :s1], rows[rb + 1, :s1], rows[rb + 2, :s1],
-                     rows[rb + 3, : n - 3 * s1]])
-                buf = jax.lax.dynamic_update_slice(buf, lits, (off,))
-            return buf
-
-        fn = jax.jit(body)
-        if len(_PATCH_FNS) >= _PATCH_CAP:
-            _PATCH_FNS.pop(next(iter(_PATCH_FNS)))
-        _PATCH_FNS[pspecs] = fn
-    return fn(buf, rows)
+    width = rows.shape[1]
+    dst, src = [], []
+    for rb, n, off in pspecs:
+        s1 = (n + 3) // 4
+        for k, ln in enumerate((s1, s1, s1, n - 3 * s1)):
+            dst.append(np.arange(off, off + ln, dtype=np.int32))
+            src.append(np.arange(ln, dtype=np.int32) + (rb + k) * width)
+            off += ln
+    dst = np.concatenate(dst)
+    size = 1 << max(int(len(dst)) - 1, 1).bit_length()
+    pad = size - len(dst)
+    # padding writes land past the buffer and are dropped
+    dst = np.concatenate([dst, np.full(pad, buf.shape[0], np.int32)])
+    src = np.concatenate(src + [np.zeros(pad, np.int32)])
+    return _scatter_rows(buf, rows.reshape(-1), dst, src)
 
 
-def _decode_seqs_raw_batch(payload, blocks, interpret):
-    """Device FSE sequence decode (entropy/seqdec_pallas.py) of every
-    sequence-bearing block in ONE batched dispatch: the host does O(table)
-    prep per block (stn_zstd_dtables, Repeat_Mode chained in order) and
-    the per-sequence bit walk runs on the TPU; blocks beyond the device
-    buckets take the host RAW walk in the same chain. Returns
-    {block_index: (ll, ml, off_value)} or None (route the whole payload
-    through the host walk instead).
-
-    Routing: STENOS_DEVICE_SEQS = 1 force device, 0 force host,
-    auto/unset = device when the D2H bus is healthy (utils.bus) — raw
-    triples come back to the host for the O(nseq) program pass."""
-    import os
-
-    from ..native import lib
-    from ..utils import bus
-    from .seqdec_pallas import decode_sections_device, prep_section
-
-    route = os.environ.get("STENOS_DEVICE_SEQS", "auto")
-    if route in ("0", "false") or lib is None:
-        return None
-    if route != "1" and not interpret and bus.d2h_gbps() < 0.5:
-        return None
-    ctx_fse = lib.zstd_ctx()
-    preps, order, raw = [], [], {}
-    for bi, spec in enumerate(blocks):
-        if spec.btype != 2:
-            continue
-        if spec.seq_len == 1 and payload[spec.seq_off] == 0:
-            continue
-        sec = payload[spec.seq_off : spec.seq_off + spec.seq_len]
-        p = prep_section(sec, ctx_fse)
-        if isinstance(p, int):
-            if p != -1000:
-                return None  # corrupt section: host ladder decides
-            r = lib.zstd_seqs_raw(sec, ctx_fse)
-            if isinstance(r, int):
-                return None
-            raw[bi] = r
-            p = None
-        elif p is None:
-            return None  # nseq == 0 under a multi-byte section: host
-        preps.append(p)
-        order.append(bi)
-    if not order:
-        return raw
-    got = decode_sections_device(preps, interpret)
-    for p_i, bi in enumerate(order):
-        if preps[p_i] is None:
-            continue  # host raw already in raw[bi]
-        if got[p_i] is None:
-            return None  # kernel flagged an error: host walk everything
-        raw[bi] = got[p_i]
-    return raw
-
-
-def _decode_sequences_device(payload, dsize, blocks, interpret,
-                             entries=None):
+def _decode_sequences_device(payload, dsize, blocks, entries=None):
     """Tier 2: host index work, device match reconstruction; in MIXED
     frames (literals-only device blocks interleaved with sequence-bearing
-    ones) the anchored blocks' Huffman streams still decode on the TPU —
+    ones) the anchored blocks' Huffman streams still decode on the device —
     their rows are patched into the staged buffer on-device — and only the
     anchor-less blocks' literals decode on the host.
     Returns a device (dsize,) uint8 array or None.
@@ -247,19 +183,13 @@ def _decode_sequences_device(payload, dsize, blocks, interpret,
     frames with history reaching across blocks, short mid-frame blocks —
     runs as ONE sequential lane over a gapless layout, where ordered
     overwrite makes the tails harmless."""
-    import jax
     import jax.numpy as jnp
 
     from ..native import lib
     from . import seq_exec
 
-    if lib is None:
-        return None
     pv = np.frombuffer(payload, np.uint8)
     row = BLOCK_MAX + W
-
-    # ---- device pass: FSE sequence walks on the TPU (batched) ----
-    seq_raw = _decode_seqs_raw_batch(payload, blocks, interpret)
 
     # ---- host pass: literals + O(nseq) index work per block ----
     ctx = lib.zstd_ctx()
@@ -298,7 +228,7 @@ def _decode_sequences_device(payload, dsize, blocks, interpret,
                 and hasattr(lib, "huf_anchors")):
             # FOREIGN block (no sidecar): the host scans the streams once
             # for code LENGTHS only — no symbol materialization — and the
-            # bytes decode on the TPU through the same anchored kernel
+            # bytes decode on the device through the same anchored decoder
             # (stn_huf_anchors; reference decodes all payloads uniformly,
             # stenos.cpp:694-753)
             r = lib.huf_anchors(
@@ -355,9 +285,9 @@ def _decode_sequences_device(payload, dsize, blocks, interpret,
         for i, (k, off_, piece, _) in enumerate(specs):
             if i not in patched:
                 stage[off_ : off_ + len(piece)] = piece
-        buf = jax.device_put(jnp.asarray(stage[:dsize]), jax.devices()[0])
+        buf = jnp.asarray(stage[:dsize])
         if patches:
-            rows = _batch_decode_streams(payload, jobs, interpret)
+            rows = _batch_decode_streams(payload, jobs)
             buf = _patch_from_rows(
                 buf, rows,
                 tuple((4 * jk, n, specs[si][1]) for si, jk, n in patches))
@@ -426,19 +356,16 @@ def _decode_sequences_device(payload, dsize, blocks, interpret,
     for i, (off_, piece) in enumerate(placed):
         if i not in patched:
             stage[off_ : off_ + len(piece)] = piece
-    dev = jax.devices()[0]
-    buf = jax.device_put(jnp.asarray(stage), dev)
+    buf = jnp.asarray(stage)
     if patches:
-        # anchored literal streams decode on the TPU and land in the staged
-        # buffer on-device (the copy-op programs then read them like any
-        # host-placed piece)
-        rows = _batch_decode_streams(payload, jobs, interpret)
+        # anchored literal streams decode on the device and land in the
+        # staged buffer there (the copy-op programs then read them like
+        # any host-placed piece)
+        rows = _batch_decode_streams(payload, jobs)
         buf = _patch_from_rows(
             buf, rows,
             tuple((4 * jk, n, placed[si][0]) for si, jk, n in patches))
-    buf = seq_exec.run_programs(
-        buf, jax.device_put(jnp.asarray(dst), dev),
-        jax.device_put(jnp.asarray(src), dev), W, interpret)
+    buf = seq_exec.run_programs(buf, jnp.asarray(dst), jnp.asarray(src), W)
     if gapped:
         rows = buf[lit_total : lit_total + len(specs) * row]
         rows = rows.reshape(len(specs), row)
@@ -446,7 +373,7 @@ def _decode_sequences_device(payload, dsize, blocks, interpret,
     return buf[lit_total : lit_total + dsize]
 
 
-def decode_payload_device(payload, dsize: int, interpret: bool = False):
+def decode_payload_device(payload, dsize: int):
     """payload: method-2/3/4/5 superblock payload (zstd frame [+ sidecar]).
     Returns a device (dsize,) uint8 array, or None when the payload isn't
     device-decodable (caller falls back to host libzstd)."""
@@ -459,8 +386,7 @@ def decode_payload_device(payload, dsize: int, interpret: bool = False):
     if content is not None and content != dsize:
         return None
     if entries is not None and len(blocks) == len(entries):
-        out = _decode_all_device(payload, dsize, blocks, entries, interpret)
+        out = _decode_all_device(payload, dsize, blocks, entries)
         if out is not None:
             return out
-    return _decode_sequences_device(payload, dsize, blocks, interpret,
-                                    entries)
+    return _decode_sequences_device(payload, dsize, blocks, entries)

@@ -180,14 +180,11 @@ def build_ctable(norm: np.ndarray, table_log: int):
 class FseEncoder:
     def __init__(self, norm, table_log):
         self.table_log = table_log
-        try:
-            from ..native import lib
-        except Exception:
-            lib = None
-        if lib is not None and hasattr(lib, "fse_ctable"):
-            # native tANS build: the sequential spread loop was 45% of the
-            # vectorized device-FSE prep (tests pin identity vs the python
-            # build below)
+        from ..native import lib
+
+        if hasattr(lib, "fse_ctable"):
+            # native tANS build of the sequential spread loop (tests pin
+            # identity vs the python build below)
             r = lib.fse_ctable(np.asarray(norm, np.int64), table_log)
             if not isinstance(r, int):
                 self.state_table, self.dnb, self.dfs = r

@@ -1,7 +1,7 @@
 """Huffman table construction for zstd literals (RFC 8878 §4.2.1).
 
 Host-side metadata work (256-symbol histogram -> length-limited code), the
-TPU-world analog of libzstd's HUF_buildCTable: the table is a few hundred
+analog of libzstd's HUF_buildCTable: the table is a few hundred
 bytes of per-superblock metadata; the bulk encode runs on device.
 
 zstd specifics honored here:

@@ -1,6 +1,6 @@
 """General-offset LZ77 match finding for the zstd sequences section.
 
-TPU-shaped design (NOTES.md roadmap 1): instead of the reference's
+Vector-shaped design: instead of the reference's
 sequential hash-chain walk (libzstd inside zstd_wrapper.h:59-90), candidate
 discovery is a SORT — positions keyed by the 4-byte fingerprint at each
 offset; equal fingerprints become neighbors, and the previous element in a

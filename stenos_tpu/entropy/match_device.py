@@ -1,10 +1,9 @@
 """Device-side LZ77 candidate discovery for the zstd sequences section.
 
-TPU-first replacement for the reference's sequential hash-chain walk
+Device replacement for the reference's sequential hash-chain walk
 (libzstd inside zstd_wrapper.h:59-90): candidate discovery is expressed
-entirely as batched stable SORTS plus elementwise ops — the two primitive
-classes the TPU executes well — with zero gathers/scatters (which run at
-~0.05 GB/s on this hardware, NOTES.md).
+entirely as batched stable SORTS plus elementwise ops, with no gathers or
+scatters.
 
 Per doubling level L = 4, 8, ..., 2^MAX_K: windows of length L are grouped
 by sorting (group_id[i], group_id[i+L/1]) pairs; because the sort is

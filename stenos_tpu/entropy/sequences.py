@@ -97,8 +97,8 @@ def _channel_plan(codes, default_norm, default_log, max_log):
 
 
 def _channel_plan_syms(syms, default_norm, default_log, max_log):
-    """_channel_plan on a plain symbol-code array (the vectorized prep
-    path, fse_pallas.prep_block — no per-sequence python pairs)."""
+    """_channel_plan on a plain symbol-code array (no per-sequence python
+    pairs)."""
     from .fse import normalize_counts, write_ncount
 
     syms = np.asarray(syms, np.int64)

@@ -2,11 +2,11 @@
 entropy payloads.
 
 The zstd literals bitstream is sequential; device decode needs per-segment
-anchors (huff_decode_pallas.py). RFC-compatible trick: anchors + code
+anchors (huff_device.py). RFC-compatible trick: anchors + code
 lengths ride a skippable frame (magic 0x184D2A5C) appended AFTER the real
 zstd frame — libzstd and the C++ reference decode the concatenation
 unchanged (verified in tests), while our decoder reads the sidecar and
-keeps the whole decompression on the TPU.
+keeps the whole decompression on the device.
 
 Layout (little-endian):
   u32 magic = 0x184D2A5C

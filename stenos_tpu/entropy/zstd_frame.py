@@ -1,8 +1,7 @@
 """RFC 8878 zstd frame assembly with Huffman-compressed literals.
 
-Host/numpy reference implementation of the TPU entropy stage's format layer
-(the device kernel in huff_pallas.py produces the same bitstreams for the
-bulk path). Blocks carry Huffman-coded literals AND full LZ77 sequences
+Host/numpy reference implementation of the device entropy stage's format
+layer (huff_device.py produces the same bitstreams for the bulk path). Blocks carry Huffman-coded literals AND full LZ77 sequences
 (encode_block below: match finding + greedy parse + FSE-coded
 LL/OF/ML streams), so output is plain standard zstd, decodable by libzstd
 and by the C++ reference's decompressor (zstd_wrapper.h).
@@ -162,7 +161,7 @@ def _block_anchor_entry(blk: bytes):
     numpy suffix-cumsum of code lengths), so the block encoders (python +
     native twin) and the frame bytes stay untouched; only the skippable
     sidecar grows. anchors[s][g] = bit read position of stream s's symbol
-    g*128, counting from the stream bottom (huff_decode_pallas semantics)."""
+    g*128, counting from the stream bottom (huff_device semantics)."""
     from ..native import lib
     from .zstd_parse import BlockSpec, _parse_sections
 
@@ -242,19 +241,21 @@ def _huffman_block_sections(data, counts):
     return codes, lens, tree
 
 
-def encode_frame_device(data, interpret: bool = False,
-                        sidecar: bool = True) -> bytes:
+def encode_frame_device(data, sidecar: bool = True) -> bytes:
     """Same frames as encode_frame_host, but full 128 KiB blocks run their
-    histogram + all four Huffman bitstreams on the TPU; the host only builds
-    tables/tree descriptions and assembles sections. The partial tail block
-    uses the host path.
+    histogram + all four Huffman bitstreams on the device; the host only
+    builds tables/tree descriptions and assembles sections. The partial
+    tail block uses the host path.
 
     sidecar=True appends the decode-anchor skippable frame
     (entropy/sidecar.py) so the payload decompresses on device too; host
     decoders (libzstd, the C++ reference) skip it."""
+    import os
+
     import jax.numpy as jnp
 
-    from .huff_pallas import encode_streams_device, histogram_device
+    from ..native import lib as native
+    from .huff_device import encode_streams_device, histogram_device
 
     data = np.frombuffer(bytes(data), np.uint8) if not isinstance(
         data, np.ndarray) else np.asarray(data, np.uint8)
@@ -280,73 +281,40 @@ def encode_frame_device(data, interpret: bool = False,
         eqc = (full[:, 1:] == full[:, :-1]).sum(axis=1)
         runny = eqc >= BLOCK_MAX // 32
         # blocks with LZ potential (neighbor-equal runs OR duplicate
-        # 4-grams) route to the sequence encoder. The router is BUS-AWARE
-        # (VERDICT r3 item 3): device candidate discovery round-trips 4x
-        # the input through the host, so it only pays when the measured
-        # D2H rate can carry it; on a poisoned relay bus (NOTES.md) the
-        # native fp4-map walk inside encode_block wins by orders of
-        # magnitude and the routing prepass runs as a native 16 KiB
-        # prefix sample instead of a device sort.
-        #   STENOS_DEVICE_MATCH: 1 = force device, 0 = force host,
-        #   auto/unset = route by utils.bus.d2h_gbps().
-        import os
-
+        # 4-grams) route to the sequence encoder. The match-finding
+        # prepass is the native 16 KiB prefix sample and the native
+        # fp4-map walk inside encode_block; STENOS_DEVICE_MATCH=1 runs the
+        # device sort-based candidate finder instead (match_device.py).
         cands = {}
-        dm = os.environ.get("STENOS_DEVICE_MATCH", "auto")
-        use_dev = dm == "1"
-        if dm not in ("0", "1"):
-            try:
-                from ..utils.bus import d2h_gbps
+        if os.environ.get("STENOS_DEVICE_MATCH") == "1":
+            from .match_device import match_candidates, matchiness
 
-                use_dev = d2h_gbps() >= 0.5
-            except Exception:
-                use_dev = False
-        if use_dev:
-            try:
-                from .match_device import match_candidates, matchiness
-
-                CHUNK = 16
-                mfrac = np.zeros(nfull, np.float32)
-                for off in range(0, nfull, CHUNK):
-                    sel = np.arange(off, min(off + CHUNK, nfull))
-                    nb = 1
-                    while nb < len(sel):
-                        nb <<= 1
-                    pad = np.zeros((nb, BLOCK_MAX), np.uint8)
-                    pad[: len(sel)] = full[sel]
-                    mfrac[sel] = matchiness(pad)[: len(sel)]
-                runny = runny | (mfrac >= 1 / 8)
-                runny_idx = np.flatnonzero(runny)
-                for off in range(0, len(runny_idx), CHUNK):
-                    sel = runny_idx[off : off + CHUNK]
-                    nb = 1
-                    while nb < len(sel):
-                        nb <<= 1
-                    pad = np.zeros((nb, BLOCK_MAX), np.uint8)
-                    pad[: len(sel)] = full[sel]
-                    got = match_candidates(pad)
-                    for j, b in enumerate(sel):
-                        cands[int(b)] = got[j]
-            except Exception:
-                pass  # no accelerator: the host fp4-map finder takes over
+            CHUNK = 16
+            mfrac = np.zeros(nfull, np.float32)
+            for off in range(0, nfull, CHUNK):
+                sel = np.arange(off, min(off + CHUNK, nfull))
+                nb = 1
+                while nb < len(sel):
+                    nb <<= 1
+                pad = np.zeros((nb, BLOCK_MAX), np.uint8)
+                pad[: len(sel)] = full[sel]
+                mfrac[sel] = matchiness(pad)[: len(sel)]
+            runny = runny | (mfrac >= 1 / 8)
+            runny_idx = np.flatnonzero(runny)
+            for off in range(0, len(runny_idx), CHUNK):
+                sel = runny_idx[off : off + CHUNK]
+                nb = 1
+                while nb < len(sel):
+                    nb <<= 1
+                pad = np.zeros((nb, BLOCK_MAX), np.uint8)
+                pad[: len(sel)] = full[sel]
+                got = match_candidates(pad)
+                for j, b in enumerate(sel):
+                    cands[int(b)] = got[j]
         else:
-            from ..native import lib as _native
-
-            if _native is not None and hasattr(_native, "matchiness"):
-                mfrac = np.array(
-                    [_native.matchiness(full[b]) for b in range(nfull)],
-                    np.float32)
-            else:
-                # numpy twin of the sampled prefix routing probe
-                m = min(16384, BLOCK_MAX - 4)
-                w = full[:, : m + 3]
-                fp = (w[:, :m].astype(np.uint32)
-                      | (w[:, 1 : m + 1].astype(np.uint32) << 8)
-                      | (w[:, 2 : m + 2].astype(np.uint32) << 16)
-                      | (w[:, 3 : m + 3].astype(np.uint32) << 24))
-                mfrac = np.array(
-                    [1.0 - len(np.unique(fp[b])) / m for b in range(nfull)],
-                    np.float32)
+            mfrac = np.array(
+                [native.matchiness(full[b]) for b in range(nfull)],
+                np.float32)
             runny = runny | (mfrac >= 1 / 8)
         # the device histogram + Huffman-stream kernels run ONLY on the
         # non-runny subset, padded to a power of two (bounded compile
@@ -362,8 +330,7 @@ def encode_frame_device(data, interpret: bool = False,
                 nbk <<= 1
             padb = np.zeros((nbk, BLOCK_MAX), np.uint8)
             padb[: len(dev_idx)] = full[dev_idx]
-            hist = np.asarray(
-                histogram_device(jnp.asarray(padb), interpret))
+            hist = np.asarray(histogram_device(jnp.asarray(padb)))
             lens_all = code_lengths_batch(hist)
             codes_all = build_ctables_batch(lens_all)
             trees = tree_descs_batch(lens_all)
@@ -377,8 +344,7 @@ def encode_frame_device(data, interpret: bool = False,
             streams = padb.reshape(nbk * 4, BLOCK_MAX // 4)
             slut = np.repeat(luts, 4, axis=0)
             words, sizes, anchors = encode_streams_device(
-                jnp.asarray(streams), jnp.asarray(slut), interpret,
-                with_anchors=True)
+                jnp.asarray(streams), jnp.asarray(slut))
             words = np.ascontiguousarray(np.asarray(words))
             sizes = np.asarray(sizes)
             anchors = np.asarray(anchors)

@@ -10,7 +10,7 @@ The bulk work is delegated:
 
 Reference behavior matched: stenos.cpp:694-753 routes every method
 2/3/4/5 payload through full zstd decompression (zstd_wrapper.h:59-90);
-here the same payloads decode with the bulk bytes staying on the TPU.
+here the same payloads decode with the bulk bytes staying on the device.
 Format: RFC 8878 §3.1.1.
 """
 

@@ -2,13 +2,14 @@
 
 The reference links libzstd directly (zstd_wrapper.h); binding the same
 system library gives byte-identical zstd frames, which keeps method-selection
-and size parity exact. A JAX/Pallas entropy stage can replace this per
-superblock method once implemented; this module stays as the host fallback
-and interop validator.
+and size parity exact. The device entropy stage (entropy/) is the opt-in
+alternative; this module stays the default and the interop validator.
 """
 
 import ctypes
 import ctypes.util
+
+import numpy as np
 
 _lib = None
 
@@ -73,27 +74,34 @@ _DST_TOO_SMALL = 70
 
 def compress(data, capacity: int, stenos_level: int):
     """Returns compressed bytes, or 'overflow'/'error' strings on failure
-    (mirroring STENOS_ERROR_DST_OVERFLOW / _ZSTD_INTERNAL)."""
+    (mirroring STENOS_ERROR_DST_OVERFLOW / _ZSTD_INTERNAL).
+
+    The output buffer is capped at ZSTD_compressBound: zstd never writes
+    more, and callers pass the whole frame's remaining capacity, which an
+    allocation per call would have to zero."""
     lib = _zstd()
     data = bytes(data)
-    cap = max(capacity, 0)
-    dst = ctypes.create_string_buffer(cap if cap else 1)
+    cap = min(max(capacity, 0), lib.ZSTD_compressBound(len(data)))
+    dst = np.empty(max(cap, 1), np.uint8)
     r = lib.ZSTD_compressCCtx(
-        _cctx(), dst, cap, data, len(data),
+        _cctx(), dst.ctypes.data, cap, data, len(data),
         zstd_from_reduced_level(stenos_level),
     )
     if lib.ZSTD_isError(r):
         if lib.ZSTD_getErrorCode(r) == _DST_TOO_SMALL:
             return "overflow"
         return "error"
-    return dst.raw[:r]
+    return dst[:r].tobytes()
 
 
 def decompress(src, dst_size: int):
+    """Decompress into at most dst_size bytes; None on error. The buffer is
+    not zero-filled: callers pass generous bounds (a superblock's maximum
+    size), and only the bytes zstd writes are returned."""
     lib = _zstd()
     src = bytes(src)
-    dst = ctypes.create_string_buffer(dst_size if dst_size else 1)
-    r = lib.ZSTD_decompress(dst, dst_size, src, len(src))
+    dst = np.empty(max(dst_size, 1), np.uint8)
+    r = lib.ZSTD_decompress(dst.ctypes.data, dst_size, src, len(src))
     if lib.ZSTD_isError(r):
         return None
-    return dst.raw[:r]
+    return dst[:r].tobytes()

@@ -1,16 +1,22 @@
-"""Loader for the native host runtime (builds on first use, cached).
+"""Loader for the native host runtime.
 
-ctypes-based (pybind11 is not available in this image); every call releases
-the GIL so the frame layer can fan superblocks out over threads, mirroring
-the reference's tiny_pool fan-out at the host-runtime level while the block
-codec itself runs on the TPU.
+The library is built from the committed src/stenos_native.cpp with g++ on
+first import, into build/ beside this file (git-ignored), under a name
+keyed by a hash of the source and of the host CPU (the build uses
+-march=native). A failed build raises: the host runtime is required.
+
+ctypes-based; every call releases the GIL so the frame layer can fan
+superblocks out over threads, mirroring the reference's tiny_pool fan-out
+at the host-runtime level while the block codec itself runs on the device.
 """
 
 import ctypes
+import hashlib
 import os
 import subprocess
 
-_SRC = os.path.join(os.path.dirname(__file__), "src", "stenos_native.cpp")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_HERE, "src", "stenos_native.cpp")
 
 
 class _Native:
@@ -85,23 +91,6 @@ class _Native:
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
             ctypes.c_void_p, ctypes.c_size_t]
-        cdll.stn_zstd_dtables.restype = ctypes.c_ssize_t
-        cdll.stn_zstd_dtables.argtypes = [
-            ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p]
-        cdll.stn_zstd_seqs_raw.restype = ctypes.c_ssize_t
-        cdll.stn_zstd_seqs_raw.argtypes = [
-            ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_size_t]
-        cdll.stn_resolve_reps.restype = ctypes.c_ssize_t
-        cdll.stn_resolve_reps.argtypes = [
-            ctypes.c_size_t, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p]
-        cdll.stn_recode_reps_enc.restype = ctypes.c_ssize_t
-        cdll.stn_recode_reps_enc.argtypes = [
-            ctypes.c_size_t, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p]
         cdll.stn_fse_ctable.restype = ctypes.c_ssize_t
         cdll.stn_fse_ctable.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -308,48 +297,6 @@ class _Native:
             return int(r)
         return ll[:r], ml[:r], off[:r]
 
-    def zstd_dtables(self, sec, ctx):
-        """Header/table prep for the device FSE sequence decoder: parse the
-        nseq header + modes and build the three decode tables (Repeat_Mode
-        persists in ctx) WITHOUT walking the bitstream — that walk runs on
-        the TPU (entropy/seqdec_pallas.py).
-
-        Returns (nseq, meta (8,) int32, tab (1536,) int32) or a negative
-        error. meta = [nseq, bitstream byte offset, bp0 bits, tl_ll,
-        tl_of, tl_ml, 0, 0]; tab rows ch*512+state pack
-        sym | nb<<8 | base<<16, channels LL, OF, ML."""
-        import numpy as np
-
-        sec = bytes(sec)
-        tab = np.zeros(3 * 512, np.int32)
-        meta = np.zeros(8, np.int32)
-        as_p = lambda a: a.ctypes.data_as(ctypes.c_void_p)
-        r = self._lib.stn_zstd_dtables(
-            sec, len(sec), ctx.ctypes.data_as(ctypes.c_void_p),
-            as_p(tab), as_p(meta))
-        if r < 0:
-            return int(r)
-        return int(r), meta, tab
-
-    def zstd_seqs_raw(self, sec, ctx, cap: int = 0x20000):
-        """Host twin of the device kernel's walk: decodes one sequences
-        section to RAW (ll, ml, offset_value) triples — no repcode
-        resolution — so out-of-bucket blocks join the same
-        resolve_reps pass as device-decoded ones. Returns the triples or
-        a negative error."""
-        import numpy as np
-
-        sec = bytes(sec)
-        ll = np.empty(cap, np.int32)
-        ml = np.empty(cap, np.int32)
-        ofv = np.empty(cap, np.int32)
-        as_p = lambda a: a.ctypes.data_as(ctypes.c_void_p)
-        r = self._lib.stn_zstd_seqs_raw(sec, len(sec), as_p(ctx), as_p(ll),
-                                        as_p(ml), as_p(ofv), cap)
-        if r < 0:
-            return int(r)
-        return ll[:r], ml[:r], ofv[:r]
-
     def fse_ctable(self, norm, table_log: int):
         """FSE compression table (tANS spread + deltas) — native twin of
         fse.build_ctable's sequential spread loop. Returns
@@ -369,42 +316,6 @@ class _Native:
             return int(r)
         return (state[: 1 << table_log].astype(np.int64), dnb[:n_sym],
                 dfs[:n_sym])
-
-    def recode_reps_enc(self, ll, ofv, reps):
-        """Encode-side repeat-offset recode (twin of
-        sequences._recode_repeat_offsets): raw offset_values (offset + 3)
-        -> repeat codes 1-3 where the registers match; reps (3,) int64
-        updated in place. Returns the recoded offset-value array or a
-        negative error."""
-        import numpy as np
-
-        ll = np.ascontiguousarray(ll, np.int32)
-        ofv = np.ascontiguousarray(ofv, np.int32)
-        n = len(ll)
-        out = np.empty(max(n, 1), np.int32)
-        as_p = lambda a: a.ctypes.data_as(ctypes.c_void_p)
-        r = self._lib.stn_recode_reps_enc(n, as_p(ll), as_p(ofv),
-                                          as_p(reps), as_p(out))
-        if r < 0:
-            return int(r)
-        return out[:n]
-
-    def resolve_reps(self, ll, ofv, reps):
-        """Repcode resolution for the device FSE decoder's RAW
-        (ll, offset_value) outputs; reps (3,) int64 updated in place.
-        Returns resolved offsets (n,) int64 or a negative error."""
-        import numpy as np
-
-        ll = np.ascontiguousarray(ll, np.int32)
-        ofv = np.ascontiguousarray(ofv, np.int32)
-        n = len(ll)
-        off = np.empty(max(n, 1), np.int64)
-        as_p = lambda a: a.ctypes.data_as(ctypes.c_void_p)
-        r = self._lib.stn_resolve_reps(n, as_p(ll), as_p(ofv), as_p(reps),
-                                       as_p(off))
-        if r < 0:
-            return int(r)
-        return off[:n]
 
     def huf_lits(self, src, four: bool, treeless: bool, regenerated: int,
                  ctx):
@@ -552,38 +463,44 @@ class _Native:
         return dst
 
 
+_FLAGS = ["-O3", "-march=native", "-std=c++17", "-DNDEBUG", "-shared",
+          "-fPIC", "-fvisibility=hidden"]
+
+
 def _build(libpath: str) -> None:
     os.makedirs(os.path.dirname(libpath), exist_ok=True)
-    # per-PID temp: concurrent builders (xdist workers, parallel sessions)
-    # must not scribble each other's half-written .so before the atomic
-    # os.replace
+    # per-PID temp: concurrent builds (xdist workers) must not scribble
+    # each other's half-written .so before the atomic os.replace
     tmp = f"{libpath}.tmp.{os.getpid()}.so"
-    subprocess.run(
-        ["g++", "-O3", "-march=native", "-std=c++17", "-DNDEBUG", "-shared",
-         "-fPIC", "-fvisibility=hidden", _SRC, "-o", tmp],
-        check=True, capture_output=True)
+    r = subprocess.run(["g++", *_FLAGS, _SRC, "-o", tmp],
+                       capture_output=True, text=True)
+    if r.returncode:
+        raise RuntimeError(f"native build failed:\n{r.stderr}")
     os.replace(tmp, libpath)
 
 
-_cached = None
+def _cpu_key() -> bytes:
+    """The host CPU's model and feature flags (what -march=native reads)."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            lines = f.read().splitlines()
+    except OSError:
+        return b""
+    return b"\n".join(sorted({ln for ln in lines
+                              if ln.startswith((b"model name", b"flags"))}))
 
 
 def _load():
-    global _cached
-    if _cached is not None:
-        return _cached
-    cache = os.path.join(
-        os.environ.get("XDG_CACHE_HOME", os.path.expanduser("~/.cache")),
-        "stenos_tpu")
-    src_mtime = int(os.stat(_SRC).st_mtime)
-    libpath = os.path.join(cache, f"stenos_native_{src_mtime}.so")
+    h = hashlib.sha256()
+    with open(_SRC, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(_FLAGS).encode())
+    h.update(_cpu_key())
+    libpath = os.path.join(_HERE, "build",
+                           f"stenos_native_{h.hexdigest()[:16]}.so")
     if not os.path.exists(libpath):
         _build(libpath)
-    _cached = _Native(ctypes.CDLL(libpath))
-    return _cached
+    return _Native(ctypes.CDLL(libpath))
 
 
-try:
-    lib = _load()
-except Exception:  # toolchain missing: pure-python fallbacks take over
-    lib = None
+lib = _load()

@@ -1,7 +1,7 @@
 // stenos-tpu native host runtime.
 //
 // Clean-room implementations (from SPEC.md, written for this project) of the
-// host-side hot paths that surround the TPU compute pipeline:
+// host-side hot paths that surround the device compute pipeline:
 //   - LZ4-dry size estimator (method selection; SPEC.md §5)
 //   - block-codec stream decoder + parse-index builder (SPEC.md §3)
 //   - byte shuffle / 4-stream delta filters (SPEC.md §2)
@@ -1388,10 +1388,10 @@ EXPORT ptrdiff_t stn_parse_rows(const uint8_t* src, size_t size, size_t bpp,
 // ===================================================================
 // zstd compressed-block decode helpers (clean-room from RFC 8878)
 //
-// The TPU entropy-decode ladder splits a sequence-bearing zstd block into
+// The device entropy-decode ladder splits a sequence-bearing zstd block into
 //   (a) O(nseq) index work — FSE sequence decode + repcode resolution +
 //       a W-chunked copy-op program (this section, host C++), and
-//   (b) O(nbytes) bulk work — literal decode + op execution on the TPU
+//   (b) O(nbytes) bulk work — literal decode + op execution on the device
 //       (entropy/seq_exec.py runs the op program as one fori_loop of
 //       static-width slice/update copies with the ordered-overwrite
 //       invariant).
@@ -1845,7 +1845,7 @@ static int huf_anchor_stream(const uint8_t* src, size_t n,
 // huffman literals section (VERDICT r4: foreign-frame literals on device).
 // The host walks each stream once doing length-only table lookups — no
 // symbol materialization, no raw-literal buffer — and the actual bytes
-// decode on the TPU via the existing anchored kernel. Builds/updates the
+// decode on the device via the anchored decoder. Builds/updates the
 // shared ZstdDecCtx table exactly as stn_huf_lits would (so a following
 // treeless block still host-decodes correctly).
 //   src/n: bytes after the literals-section header (csize bytes)
@@ -2103,241 +2103,6 @@ EXPORT ptrdiff_t stn_seq_ops(size_t nseq, const int32_t* ll,
     if (!emit_lit(trailing)) return ERR_DST;
     if (pos > out_limit) return ERR_INPUT;
     return (ptrdiff_t)nops;
-}
-
-// ENCODE-side repeat-offset recode (twin of sequences._recode_repeat_
-// offsets, libzstd's ZSTD_updateRep rule): raw offset_values (offset + 3)
-// become repeat codes 1-3 where the recent-offset registers match. reps
-// updated in place. The sequential register chain made this a python
-// per-sequence loop in the device-FSE prep (VALIDATE_r04 §5's 872 ms);
-// here it is the only non-vectorizable piece, at native speed.
-EXPORT ptrdiff_t stn_recode_reps_enc(size_t nseq, const int32_t* ll,
-                                     const int32_t* ofv, int64_t* reps,
-                                     int32_t* ofv_out) {
-    for (size_t i = 0; i < nseq; ++i) {
-        const int64_t off = (int64_t)ofv[i] - 3;
-        if (off <= 0) return ERR_INPUT;
-        int code;
-        if (ll[i] != 0) {
-            code = off == reps[0] ? 1
-                 : off == reps[1] ? 2
-                 : off == reps[2] ? 3 : 0;
-        } else {
-            code = off == reps[1] ? 1
-                 : off == reps[2] ? 2
-                 : off == reps[0] - 1 ? 3 : 0;
-        }
-        if (code == 0) {
-            ofv_out[i] = (int32_t)(off + 3);
-            reps[2] = reps[1];
-            reps[1] = reps[0];
-            reps[0] = off;
-        } else {
-            ofv_out[i] = code;
-            const int rep_idx = code - 1 + (ll[i] == 0 ? 1 : 0);
-            if (rep_idx == 1) {
-                const int64_t t = reps[1];
-                reps[1] = reps[0];
-                reps[0] = t;
-            } else if (rep_idx == 2) {
-                const int64_t t = reps[2];
-                reps[2] = reps[1];
-                reps[1] = reps[0];
-                reps[0] = t;
-            } else if (rep_idx == 3) {
-                const int64_t t = reps[0] - 1;
-                reps[2] = reps[1];
-                reps[1] = reps[0];
-                reps[0] = t;
-            }
-        }
-    }
-    return (ptrdiff_t)nseq;
-}
-
-// Host twin of the DEVICE kernel's walk: identical to stn_zstd_seqs but
-// emits RAW offset VALUES (no repcode resolution) so blocks that exceed
-// the device buckets can join the same uniform stn_resolve_reps pass as
-// device-decoded blocks. Returns nseq or a negative error.
-EXPORT ptrdiff_t stn_zstd_seqs_raw(const uint8_t* sec, size_t n,
-                                   uint8_t* ctx_blob, int32_t* ll_out,
-                                   int32_t* ml_out, int32_t* ofv_out,
-                                   size_t cap) {
-    ZstdDecCtx* ctx = (ZstdDecCtx*)ctx_blob;
-    if (n < 1) return ERR_SRC;
-    size_t p = 0;
-    uint32_t nseq;
-    const uint8_t b0 = sec[p++];
-    if (b0 < 128) {
-        nseq = b0;
-    } else if (b0 < 255) {
-        if (p >= n) return ERR_SRC;
-        nseq = ((uint32_t)(b0 - 128) << 8) + sec[p++];
-    } else {
-        if (p + 2 > n) return ERR_SRC;
-        nseq = sec[p] + ((uint32_t)sec[p + 1] << 8) + 0x7F00;
-        p += 2;
-    }
-    if (nseq == 0) return 0;
-    if (nseq > cap || p >= n) return ERR_INPUT;
-    const uint8_t modes = sec[p++];
-    if (modes & 3) return ERR_INPUT;
-    size_t used;
-    if (ctx->ll.build((modes >> 6) & 3, kLLDefault, 35, 6, 9, sec + p,
-                      n - p, &used))
-        return ERR_INPUT;
-    p += used;
-    if (ctx->of.build((modes >> 4) & 3, kOFDefault, 28, 5, 8, sec + p,
-                      n - p, &used))
-        return ERR_INPUT;
-    p += used;
-    if (ctx->ml.build((modes >> 2) & 3, kMLDefault, 52, 6, 9, sec + p,
-                      n - p, &used))
-        return ERR_INPUT;
-    p += used;
-    BwdBits br;
-    if (br.init(sec + p, n - p)) return ERR_SRC;
-    ctx->ll.init_state(br);
-    ctx->of.init_state(br);
-    ctx->ml.init_state(br);
-    for (uint32_t i = 0; i < nseq; ++i) {
-        const uint8_t of_code = ctx->of.symbol();
-        if (of_code > 30) return ERR_INPUT;
-        const uint32_t off_val = (1u << of_code) + br.read(of_code);
-        const uint8_t ml_code = ctx->ml.symbol();
-        if (ml_code > 52) return ERR_INPUT;
-        const uint32_t ml = kMLBase[ml_code] + br.read(kMLBits[ml_code]);
-        const uint8_t ll_code = ctx->ll.symbol();
-        if (ll_code > 35) return ERR_INPUT;
-        const uint32_t ll = kLLBase[ll_code] + br.read(kLLBits[ll_code]);
-        ll_out[i] = (int32_t)ll;
-        ml_out[i] = (int32_t)ml;
-        ofv_out[i] = (int32_t)off_val;
-        if (i + 1 < nseq) {
-            ctx->ll.update(br);
-            ctx->ml.update(br);
-            ctx->of.update(br);
-        }
-    }
-    if (br.bits != 0) return ERR_INPUT;
-    return (ptrdiff_t)nseq;
-}
-
-// Header/table prep for the DEVICE FSE sequence decoder
-// (entropy/seqdec_pallas.py): parse the nseq header + channel modes and
-// build the three decode tables — the same machinery stn_zstd_seqs uses,
-// Repeat_Mode ctx persistence included — WITHOUT touching the bitstream
-// (the per-sequence state walk runs on the TPU; the host stays
-// O(table size) per block, not O(nseq)).
-//   out_tab:  (3*512,) int32 per-state entries sym | nb<<8 | base<<16,
-//             channel rows ch*512 + state, channel order LL, OF, ML.
-//             RLE channels: one row 0 entry (rle_sym, nb 0, base 0).
-//   out_meta: (8,) int32 [nseq, bitstream byte offset in sec, bp0 (initial
-//             bit cursor), tl_ll, tl_of, tl_ml, 0, 0]
-// Returns nseq (>= 0) or a negative error.
-EXPORT ptrdiff_t stn_zstd_dtables(const uint8_t* sec, size_t n,
-                                  uint8_t* ctx_blob, int32_t* out_tab,
-                                  int32_t* out_meta) {
-    ZstdDecCtx* ctx = (ZstdDecCtx*)ctx_blob;
-    if (n < 1) return ERR_SRC;
-    size_t p = 0;
-    uint32_t nseq;
-    const uint8_t b0 = sec[p++];
-    if (b0 < 128) {
-        nseq = b0;
-    } else if (b0 < 255) {
-        if (p >= n) return ERR_SRC;
-        nseq = ((uint32_t)(b0 - 128) << 8) + sec[p++];
-    } else {
-        if (p + 2 > n) return ERR_SRC;
-        nseq = sec[p] + ((uint32_t)sec[p + 1] << 8) + 0x7F00;
-        p += 2;
-    }
-    for (int i = 0; i < 8; ++i) out_meta[i] = 0;
-    if (nseq == 0) return 0;
-    if (p >= n) return ERR_INPUT;
-    const uint8_t modes = sec[p++];
-    if (modes & 3) return ERR_INPUT;
-    size_t used;
-    if (ctx->ll.build((modes >> 6) & 3, kLLDefault, 35, 6, 9, sec + p,
-                      n - p, &used))
-        return ERR_INPUT;
-    p += used;
-    if (ctx->of.build((modes >> 4) & 3, kOFDefault, 28, 5, 8, sec + p,
-                      n - p, &used))
-        return ERR_INPUT;
-    p += used;
-    if (ctx->ml.build((modes >> 2) & 3, kMLDefault, 52, 6, 9, sec + p,
-                      n - p, &used))
-        return ERR_INPUT;
-    p += used;
-    if (p >= n || sec[n - 1] == 0) return ERR_SRC;
-    const SeqChannel* chans[3] = {&ctx->ll, &ctx->of, &ctx->ml};
-    for (int ch = 0; ch < 3; ++ch) {
-        int32_t* t = out_tab + ch * 512;
-        for (int s = 0; s < 512; ++s) t[s] = 0;
-        const SeqChannel& c = *chans[ch];
-        if (c.rle) {
-            t[0] = (int32_t)c.rle_sym;
-        } else {
-            const int size = 1 << c.table_log;
-            for (int s = 0; s < size; ++s)
-                t[s] = (int32_t)c.table[s].sym
-                       | ((int32_t)c.table[s].nb << 8)
-                       | ((int32_t)c.table[s].base << 16);
-        }
-    }
-    out_meta[0] = (int32_t)nseq;
-    out_meta[1] = (int32_t)p;
-    out_meta[2] = (int32_t)((n - p - 1) * 8 + highbit_u32(sec[n - 1]));
-    out_meta[3] = ctx->ll.table_log;
-    out_meta[4] = ctx->of.table_log;
-    out_meta[5] = ctx->ml.table_log;
-    return (ptrdiff_t)nseq;
-}
-
-// Repcode resolution for the DEVICE FSE sequence decoder: consumes the
-// kernel's RAW (ll, offset_value) pairs, resolves the repeat offsets
-// exactly like stn_zstd_seqs (RFC 8878 §3.1.1.3.2.1.1; reps updated in
-// place) and writes the resolved offsets. O(nseq) integer work, zero bit
-// reading — the entropy half already ran on the TPU. Returns 0 or a
-// negative error.
-EXPORT ptrdiff_t stn_resolve_reps(size_t nseq, const int32_t* ll,
-                                  const int32_t* ofv, int64_t* reps,
-                                  int64_t* off_out) {
-    for (size_t i = 0; i < nseq; ++i) {
-        const int64_t off_val = (int64_t)(uint32_t)ofv[i];
-        int64_t off;
-        if (off_val > 3) {
-            off = off_val - 3;
-            reps[2] = reps[1];
-            reps[1] = reps[0];
-            reps[0] = off;
-        } else {
-            const int idx = (int)off_val - 1 + (ll[i] == 0 ? 1 : 0);
-            if (idx == 0) {
-                off = reps[0];
-            } else if (idx == 1) {
-                off = reps[1];
-                reps[1] = reps[0];
-                reps[0] = off;
-            } else if (idx == 2) {
-                off = reps[2];
-                reps[2] = reps[1];
-                reps[1] = reps[0];
-                reps[0] = off;
-            } else {
-                off = reps[0] - 1;
-                if (off <= 0) return ERR_INPUT;
-                reps[2] = reps[1];
-                reps[1] = reps[0];
-                reps[0] = off;
-            }
-        }
-        if (off <= 0) return ERR_INPUT;
-        off_out[i] = off;
-    }
-    return 0;
 }
 
 // ===================================================================
@@ -2609,10 +2374,9 @@ inline ptrdiff_t seq_encode(const int32_t* seqs_in, size_t n, int64_t* reps,
 }  // namespace
 
 // FSE compression-table build (the tANS spread + delta construction) for
-// the device-FSE encode prep: the python twin (fse.build_ctable) was 45%
-// of prep_block's host time (sequential spread loop). Same tables as
-// FseEncSeq::build — byte-identity of the device bitstreams is pinned by
-// tests/test_fse_pallas.py.
+// the python sequence encoder (fse.FseEncoder): the python twin
+// (fse.build_ctable) is a sequential spread loop. Same tables as
+// FseEncSeq::build.
 //   norm: (n_sym,) int32 normalized counts (-1 allowed); tlog <= 9
 //   out_state: (512,) int32; out_dnb/out_dfs: (64,) int64
 EXPORT ptrdiff_t stn_fse_ctable(const int32_t* norm, int n_sym, int tlog,

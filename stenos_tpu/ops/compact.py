@@ -1,12 +1,11 @@
 """Order-preserving ragged compaction / expansion as pure vector ops.
 
-THE core TPU primitive of this framework. The stenos format is a ragged
+The core primitive of the device block codec. The stenos format is a ragged
 concatenation of variable-size sections; CPUs emit it with pointer-walking
-writes and parse it with pointer-walking reads. XLA's element-level
-scatter/gather lowers to effectively-serial code on TPU (measured ~0.05 GB/s),
-so instead both directions are expressed as monotone shifts executed in
-log2(width) masked-roll stages — pure VPU work (roll + compare + select),
-no gathers, no scatters.
+writes and parse it with pointer-walking reads. Here both directions are
+expressed as monotone shifts executed in log4(width) masked-roll stages —
+roll + compare + select only, no data-dependent gathers or scatters (a
+gather formulation is the open alternative on the GPU).
 
 Correctness of the ascending-bit schedule (compaction): remaining shifts are
 multiples of 2^k before stage k and order-preserving targets are strictly

@@ -1,7 +1,7 @@
 """4-stream byte delta filter — SPEC.md §2.2 (delta.cpp:30-71, 230+).
 
 The 4-way stream split exists so the inverse (a byte prefix-sum) can run as 4
-independent scans; on TPU delta_inv is a mod-256 cumulative sum which XLA
+independent scans; on device delta_inv is a mod-256 cumulative sum which XLA
 implements as a log-depth parallel scan.
 """
 

@@ -1,6 +1,6 @@
 """Byte shuffle (Blosc-style transpose) — SPEC.md §2.1.
 
-On TPU this is a reshape+transpose that XLA lowers to an efficient layout
+On device this is a reshape+transpose that XLA lowers to an efficient layout
 change; no hand-written kernel needed (the reference needs 1600 lines of
 SSE2/AVX2 for the same op: shuffle-sse2.cpp, shuffle-avx2.cpp).
 """

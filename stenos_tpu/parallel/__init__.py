@@ -9,7 +9,6 @@ from .sharding import (
     make_mesh,
     assemble_frame_sharded,
     encode_segments_sharded,
-    encode_slabs_sharded,
     encode_superblocks_sharded,
     decode_slabs_sharded,
     ragged_traffic_model,
@@ -25,7 +24,6 @@ __all__ = [
     "compress_sharded",
     "decompress_sharded",
     "encode_segments_sharded",
-    "encode_slabs_sharded",
     "encode_superblocks_sharded",
     "decode_slabs_sharded",
     "ragged_traffic_model",

@@ -1,20 +1,19 @@
-"""End-to-end multi-chip frame compression.
+"""End-to-end multi-device frame compression.
 
-The public sharded path: superblocks shard over the mesh, each chip runs
-the Pallas encode mega-kernel locally, compressed sizes are combined with
+The public sharded path: superblocks shard over the mesh, each device runs
+the XLA block-codec encode locally, compressed sizes are combined with
 an all-gather + cumsum (the collective replacement for the reference's
-serial offset fix-up, stenos.cpp:977-990), the padded row records are
-all-gathered over ICI, and the ordered-DMA frame assembler writes the
-final contiguous frame in HBM (the parallel-memcpy round,
-stenos.cpp:992-1004). Output is byte-identical to the single-chip device
-path (engine_jax.compress_frame_device_jit) and decodes with
-frame.decompress / the C++ reference.
+serial offset fix-up, stenos.cpp:977-990), and the frame is assembled in
+device memory (the parallel-memcpy round, stenos.cpp:992-1004). Output is
+byte-identical to the single-device path
+(engine_jax.compress_frame_device_jit) and decodes with frame.decompress /
+the C++ reference.
 
 Multi-host: the same shard_map runs under jax.distributed with a global
 mesh (tests/test_distributed.py drives a 2-process CPU cluster).
 """
 
-from functools import partial
+from functools import lru_cache
 
 import numpy as np
 
@@ -22,22 +21,16 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from .sharding import (encode_slabs_sharded, encode_superblocks_sharded,
-                       make_mesh)
-from ..utils.demote import warn_once
-
-
-from functools import lru_cache
+from .sharding import encode_superblocks_sharded, make_mesh
 
 
 @lru_cache(maxsize=64)
 def _sharded_encode_gather_fn(mesh: Mesh, bpp: int, block_level: int,
-                              axis: str, interpret: bool):
-    from ..ops.encode_pallas import encode_slabs_body
+                              axis: str):
+    from ..engine_jax import encode_records_body
 
     def step(chunk):
-        rows, totals, _, _ = encode_slabs_body(chunk, bpp, block_level,
-                                               interpret=interpret)
+        rows, totals, _, _ = encode_records_body(chunk, bpp, block_level)
         sizes = jax.lax.all_gather(totals, axis, tiled=True)
         offs = 8 + jnp.cumsum(sizes) - sizes
         rows_g = jax.lax.all_gather(rows, axis, tiled=True)
@@ -50,33 +43,31 @@ def _sharded_encode_gather_fn(mesh: Mesh, bpp: int, block_level: int,
 
 
 def _sharded_encode_gather(mesh: Mesh, data, bpp: int, block_level: int,
-                           axis: str, interpret: bool):
+                           axis: str):
     sharding = NamedSharding(mesh, P(axis))
     data = jax.device_put(data, sharding)
-    return _sharded_encode_gather_fn(mesh, bpp, block_level, axis,
-                                     interpret)(data)
+    return _sharded_encode_gather_fn(mesh, bpp, block_level, axis)(data)
 
 
 def compress_device_sharded(data, bpp: int, level: int = 1,
-                            mesh: Mesh | None = None, axis: str = "chunks",
-                            interpret: bool = False, kernel: str = "pallas"):
+                            mesh: Mesh | None = None, axis: str = "chunks"):
     """Sharded device-resident frame compression — the ragged pipeline.
 
     data: (n_sb, sb) uint8 with n_sb a multiple of the mesh size (sb | the
     chosen superblock size). Returns (frame, frame_len): frame is a
-    (nd*S,) uint8 array SHARDED over the mesh (chip t holds bytes
+    (nd*S,) uint8 array SHARDED over the mesh (device t holds bytes
     [t*S, (t+1)*S)); np.asarray(frame)[:frame_len] is byte-identical to
-    engine_jax.compress_frame_device_jit's single-chip frame.
+    engine_jax.compress_frame_device_jit's single-device frame.
 
-    Pipeline (SURVEY §2.7): phase-1 shard_map encodes each chip's
+    Pipeline (SURVEY §2.7): phase-1 shard_map encodes each device's
     superblocks and packs them into a contiguous local segment (parallel
     frame assembly — the reference's memcpy round, stenos.cpp:992-1004);
     only the nd segment lengths ride a collective. The host turns them
     into global offsets (the prefix-sum replacing stenos.cpp:977-990's
     serial walk) and a bucketed shard width sized from the MEASURED
     compressed bytes; phase-2 reduce_scatters the placed segments so
-    per-chip ICI traffic is ~(nd-1)/nd of the compressed frame, not of
-    the padded rows.
+    per-device interconnect traffic is ~(nd-1)/nd of the compressed
+    frame, not of the padded rows.
     """
     from ..engine_jax import _bucket125, frame_header_bytes
     from .sharding import assemble_frame_sharded, encode_segments_sharded
@@ -87,7 +78,7 @@ def compress_device_sharded(data, bpp: int, level: int = 1,
     if n_sb % nd:
         raise ValueError(f"n_sb={n_sb} not a multiple of mesh size {nd}")
     segs, seg_lens = encode_segments_sharded(
-        mesh, data, bpp, 2 if level else 0, axis, interpret, kernel)
+        mesh, data, bpp, 2 if level else 0, axis)
     seg_lens = np.asarray(seg_lens, np.int64)  # nd scalars D2H
     nbytes = n_sb * sb
     hdr = frame_header_bytes(nbytes, sb, bpp, level)
@@ -103,11 +94,10 @@ def compress_device_sharded(data, bpp: int, level: int = 1,
 
 def compress_device_sharded_gathered(data, bpp: int, level: int = 1,
                                      mesh: Mesh | None = None,
-                                     axis: str = "chunks",
-                                     interpret: bool = False):
-    """The round-4 gathered variant (all_gather of padded rows + one-device
-    assembly): kept as the traffic A/B baseline for benchs/bench_scaling.py
-    and as a fallback shape. Same byte output as the ragged path."""
+                                     axis: str = "chunks"):
+    """The gathered variant (all_gather of padded rows + one-device
+    assembly): the traffic A/B baseline for benchs/bench_scaling.py. Same
+    byte output as the ragged path."""
     from ..engine_jax import _frame_assemble, frame_header_bytes
 
     n_sb, sb = data.shape
@@ -116,7 +106,7 @@ def compress_device_sharded_gathered(data, bpp: int, level: int = 1,
     if n_sb % nd:
         raise ValueError(f"n_sb={n_sb} not a multiple of mesh size {nd}")
     rows, sizes, offs = _sharded_encode_gather(
-        mesh, data, bpp, 2 if level else 0, axis, interpret)
+        mesh, data, bpp, 2 if level else 0, axis)
     nbytes = n_sb * sb
     hdr = frame_header_bytes(nbytes, sb, bpp, level)
     base = len(hdr)
@@ -130,27 +120,20 @@ def compress_device_sharded_gathered(data, bpp: int, level: int = 1,
 
 class ShardedEngine:
     """frame.py engine whose batched superblock pre-pass fans out over a
-    device mesh: each chip block-encodes its shard of superblocks locally
-    (Pallas mega-kernel on TPU, the XLA pipeline elsewhere), then method
-    selection, LZ patch-up and the zstd entropy stage run on the gathered
-    streams exactly as in the single-chip path — so `compress(...,
-    mesh=...)` output is byte-identical to the single-chip frame at EVERY
-    level, matching the reference thread pool which parallelizes ALL
-    methods (stenos.cpp:909-1016), not just METHOD_BLOCK.
+    device mesh: each device block-encodes its shard of superblocks
+    locally, then method selection, LZ patch-up and the zstd entropy stage
+    run on the gathered streams exactly as in the single-device path — so
+    `compress(..., mesh=...)` output is byte-identical to the single-device
+    frame at EVERY level, matching the reference thread pool which
+    parallelizes ALL methods (stenos.cpp:909-1016), not just METHOD_BLOCK.
 
-    Implemented by delegation: everything except encode_batch is inherited
-    from JaxEngine via composition-free subclassing."""
+    Everything except encode_batch is borrowed from a JaxEngine."""
 
-    def __init__(self, mesh: Mesh | None = None, axis: str = "chunks",
-                 interpret: bool | None = None):
+    def __init__(self, mesh: Mesh | None = None, axis: str = "chunks"):
         self.mesh = mesh if mesh is not None else make_mesh()
         self.axis = axis
-        self.interpret = (jax.default_backend() != "tpu"
-                          if interpret is None else interpret)
 
     def encode_batch(self, data, bpp: int, sb: int, block_level: int = 2):
-        from ..engine_jax import _use_pallas, encode_superblocks_body
-
         nbytes = len(data)
         n_sb = -(-nbytes // sb)
         n_full = nbytes // sb
@@ -161,62 +144,17 @@ class ShardedEngine:
         n_pad = -(-n_full // nd) * nd
         batch = np.zeros((n_pad, sb), np.uint8)
         batch[:n_full] = np.asarray(data[: n_full * sb]).reshape(n_full, sb)
-        r = self._pallas_batch(batch, bpp, block_level) \
-            if (_use_pallas() or self.interpret) else None
-        if r is None:
-            out, total, bs, fs = encode_superblocks_sharded(
-                self.mesh, batch, bpp, block_level, self.axis)
-            r = (np.asarray(out), np.asarray(total), np.asarray(bs),
-                 np.asarray(fs))
-        out, total, bs, fs = r
+        out, total, bs, fs = encode_superblocks_sharded(
+            self.mesh, batch, bpp, block_level, self.axis)
+        out, total = np.asarray(out), np.asarray(total)
+        bs, fs = np.asarray(bs), np.asarray(fs)
         pre = [(out[i], int(total[i]), bs[i], fs[i]) for i in range(n_full)]
         pre += [None] * (n_sb - n_full)
         return pre
 
-    def _pallas_batch(self, batch, bpp: int, block_level: int):
-        """Sharded mega-kernel pre-pass (slab-split like the single-chip
-        encode_superblocks_pallas; headers stripped on host)."""
-        from ..engine_jax import _PALLAS_SHAPE_FAILURES
-        from ..ops.encode_pallas import slab_nb
-
-        n_sb, sb = batch.shape
-        nb = sb // (256 * bpp)
-        snb = slab_nb(nb)
-        if snb is None:
-            return None
-        key = ("enc", bpp, snb, block_level)
-        if key in _PALLAS_SHAPE_FAILURES:
-            return None
-        slabs = nb // snb
-        if (n_sb * slabs) % self.mesh.devices.size:
-            return None
-        try:
-            rows, totals, bsizes, fsizes = encode_slabs_sharded(
-                self.mesh, batch.reshape(n_sb * slabs, snb * 256 * bpp),
-                bpp, block_level, self.axis, self.interpret)
-            rows = np.asarray(rows)
-            totals = np.asarray(totals)
-            bsizes = np.asarray(bsizes).reshape(n_sb, nb)
-            fsizes = np.asarray(fsizes).reshape(n_sb, nb)
-        except Exception as e:
-            _PALLAS_SHAPE_FAILURES.add(key)
-            warn_once(f"mesh-enc-{key}",
-                      f"sharded Pallas encode failed for shape key {key}; "
-                      "demoting to the XLA pipeline", e)
-            return None
-        out_tot = totals.reshape(n_sb, slabs) - 4
-        streams = np.zeros((n_sb, int(out_tot.sum(axis=1).max())), np.uint8)
-        for i in range(n_sb):
-            pos = 0
-            for s in range(slabs):
-                t = int(out_tot[i, s])
-                streams[i, pos : pos + t] = rows[i * slabs + s][4 : 4 + t]
-                pos += t
-        return streams, out_tot.sum(axis=1), bsizes, fsizes
-
     def __getattr__(self, name):
         # finish_block_stream / encode_block_stream / decode_block_stream /
-        # _patch_lz state: borrow the single-chip engine's host patch-up
+        # _patch_lz state: borrow the single-device engine's host patch-up
         if name.startswith("__"):
             raise AttributeError(name)
         from ..engine_jax import JaxEngine
@@ -226,14 +164,13 @@ class ShardedEngine:
 
 
 def compress_sharded(data, bpp: int, level: int = 1,
-                     mesh: Mesh | None = None,
-                     interpret: bool | None = None, entropy=None) -> bytes:
+                     mesh: Mesh | None = None, entropy=None) -> bytes:
     """Whole-input sharded compress -> complete frame bytes on host.
 
     data: 1-D bytes/uint8 array. Runs the standard frame layer with a
     ShardedEngine, so superblock sizing, the full §2.5 method-selection
     decision tree and the entropy stage all behave exactly like the
-    single-chip path at every level; only the block-codec pre-pass fans out
+    single-device path at every level; only the block-codec pre-pass fans out
     over the mesh. Level 0 is a host memcpy frame (no device work)."""
     from .. import frame as fr
 
@@ -242,18 +179,17 @@ def compress_sharded(data, bpp: int, level: int = 1,
     data = np.ascontiguousarray(data).view(np.uint8).reshape(-1)
     if level == 0:
         return fr.compress(data, bpp, level)
-    engine = ShardedEngine(mesh, interpret=interpret)
+    engine = ShardedEngine(mesh)
     return fr.compress(data, bpp, level, engine=engine, entropy=entropy)
 
 
 def decompress_sharded(frame, bpp: int, mesh: Mesh | None = None,
-                       axis: str = "chunks",
-                       interpret: bool | None = None):
+                       axis: str = "chunks"):
     """Mesh-parallel frame decompression (the decompression fan-out of
     stenos.cpp:1151-1202): the host C++ batch parser builds the decode
-    index, the virtual payloads shard over the mesh, and each chip runs the
-    decode kernel on its slice. Mixed-method frames (entropy / COPY / short
-    tails) fall back to the single-chip frame layer per record.
+    index, the virtual payloads shard over the mesh, and each device
+    decodes its slice. Frames with other methods (entropy / COPY) take the
+    single-device frame layer.
 
     Returns a uint8 numpy array of the decompressed bytes."""
     from .. import frame as fr
@@ -261,23 +197,20 @@ def decompress_sharded(frame, bpp: int, mesh: Mesh | None = None,
     frame = bytes(memoryview(np.asarray(frame))) if not isinstance(
         frame, (bytes, bytearray)) else bytes(frame)
     mesh = mesh if mesh is not None else make_mesh()
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    r = _decode_frame_sharded(frame, bpp, mesh, axis, interpret)
+    r = _decode_frame_sharded(frame, bpp, mesh, axis)
     if r is not None:
         return r
     return fr.decompress(frame, bpp, engine="auto")
 
 
-def _decode_frame_sharded(frame: bytes, bpp: int, mesh: Mesh, axis: str,
-                          interpret: bool):
+def _decode_frame_sharded(frame: bytes, bpp: int, mesh: Mesh, axis: str):
+    """All-BLOCK frames -> decoded bytes; None for other methods."""
     from .. import frame as fr
-    from ..engine_jax import _bucket125, _reslab_parsed
+    from ..constants import ERROR_INVALID_INPUT
+    from ..engine_jax import _bucket125, block_records, decode_tail_record
     from ..native import lib as native
     from .sharding import decode_slabs_sharded
 
-    if native is None or not hasattr(native, "parse_rows_batch"):
-        return None
     dsize_total, sb, pos = fr.get_info(frame, bpp)
     block_size = 256 * bpp
     if dsize_total == 0 or sb % block_size:
@@ -286,51 +219,26 @@ def _decode_frame_sharded(frame: bytes, bpp: int, mesh: Mesh, axis: str,
     if n_sb == 0:
         return None
     nb = sb // block_size
-    offs, csizes = [], []
-    p = pos
-    for _ in range(n_sb):
-        if p + 4 > len(frame) or frame[p] != 1:
-            return None  # mixed methods: single-chip ladder handles them
-        csize = int.from_bytes(frame[p + 1 : p + 4], "little")
-        offs.append(p + 4)
-        csizes.append(csize)
-        p += 4 + csize
+    recs = block_records(frame, pos, n_sb)
+    if recs is None:
+        return None
+    offs, csizes = recs
+    p = offs[-1] + csizes[-1]
     row_bytes = _bucket125(max(csizes) + 512)
     r = native.parse_rows_batch(frame, bpp, sb, offs, csizes, row_bytes)
     if isinstance(r, int):
-        return None
-    vbufs, po, rt, vlens = r
-    snb = nb
-    while snb * bpp > 512 and snb % 2 == 0:
-        snb //= 2
-    if snb != nb:
-        r3 = _reslab_parsed((vbufs, po, rt), vlens, bpp, nb, snb)
-        if r3 is None:
-            return None
-        vbufs, po, rt = r3
-    n_rows = vbufs.shape[0]
+        raise fr.StenosError(ERROR_INVALID_INPUT)
+    vbufs, po, rt, _ = r
     nd = mesh.devices.size
-    n_pad = -(-n_rows // nd) * nd
-    if n_pad != n_rows:  # pad by repeating the last slab (decoded, dropped)
-        reps = n_pad - n_rows
+    n_pad = -(-n_sb // nd) * nd
+    if n_pad != n_sb:  # pad by repeating the last slab (decoded, dropped)
+        reps = n_pad - n_sb
         vbufs = np.concatenate([vbufs, np.repeat(vbufs[-1:], reps, 0)])
         po = np.concatenate([po, np.repeat(po[-1:], reps, 0)])
         rt = np.concatenate([rt, np.repeat(rt[-1:], reps, 0)])
-    try:
-        words = decode_slabs_sharded(mesh, vbufs, po, rt, bpp, snb, axis,
-                                     interpret)
-        out = np.ascontiguousarray(np.asarray(words)[:n_rows])
-    except Exception as e:
-        warn_once("mesh-decode",
-                  "mesh-parallel decode failed; demoting to the host "
-                  "decompress ladder", e)
-        return None
-    out = out.view(np.uint8).reshape(-1)[: n_sb * sb]
+    out = decode_slabs_sharded(mesh, vbufs, po, rt, bpp, nb, axis)
+    out = np.asarray(out)[:n_sb].reshape(-1)
     if dsize_total > n_sb * sb:  # short final superblock: host ladder
-        code = frame[p]
-        csize = int.from_bytes(frame[p + 1 : p + 4], "little")
-        tail = fr.decompress_superblock(
-            code, np.frombuffer(frame[p + 4 : p + 4 + csize], np.uint8),
-            bpp, dsize_total - n_sb * sb)
-        out = np.concatenate([out, np.asarray(tail, np.uint8).reshape(-1)])
+        tail = decode_tail_record(frame, p, bpp, dsize_total - n_sb * sb)
+        out = np.concatenate([out, tail])
     return out

@@ -1,18 +1,19 @@
 """Chunk-data-parallel compression over a device mesh.
 
 The reference's only parallelism is a host thread pool over independent
-superblocks (tiny_pool.h, stenos.cpp:909-1016). The TPU-native equivalent
-shards the superblock batch across chips with shard_map over a 1-D mesh:
-each chip block-compresses its superblocks locally (pure local VPU work),
-then the variable-length results are combined with XLA collectives — a
-prefix-sum over compressed sizes replacing the reference's serial offset
-walk, and an all-gather of the (padded) streams riding the ICI.
+superblocks (tiny_pool.h, stenos.cpp:909-1016). The equivalent here shards
+the superblock batch across devices with shard_map over a 1-D mesh: each
+device block-compresses its superblocks locally, then the variable-length
+results are combined with XLA collectives — a prefix-sum over compressed
+sizes replacing the reference's serial offset walk, and an all-gather or
+reduce_scatter of the streams over the interconnect. The mesh is
+topology-free: every device reaches every other at the same rate.
 
 Multi-host: the same code runs under jax.distributed with a global mesh; the
 frame layer only consumes the gathered sizes/streams on host 0.
 """
 
-from functools import partial
+from functools import lru_cache
 
 import numpy as np
 
@@ -20,7 +21,8 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..engine_jax import encode_superblocks_body, decode_rows_jit
+from ..engine_jax import (decode_slabs_jit, encode_records_body,
+                          encode_superblocks_body)
 
 
 def make_mesh(n_devices: int | None = None, axis: str = "chunks") -> Mesh:
@@ -35,7 +37,8 @@ def encode_superblocks_sharded(mesh: Mesh, data, bpp: int,
     """Shard (n_sb, sb) superblocks over the mesh and encode locally.
 
     Returns (streams, totals, block_sizes, full_sizes) with the same global
-    shapes as the single-chip encoder; XLA keeps them sharded until consumed.
+    shapes as the single-device encoder; XLA keeps them sharded until
+    consumed.
     """
 
     def local(chunk):
@@ -53,27 +56,24 @@ def encode_superblocks_sharded(mesh: Mesh, data, bpp: int,
 
 
 def decode_slabs_sharded(mesh: Mesh, vbufs, plane_off, rowtab, bpp: int,
-                         snb: int, axis: str = "chunks",
-                         interpret: bool = False):
+                         nb: int, axis: str = "chunks"):
     """Mesh-parallel slab decode: shard the (n_rows, row_bytes) virtual
-    payloads (from the C++ batch row parser) over the mesh and run the
-    decode kernel locally on each chip's slice — the decompression fan-out
-    of the reference's thread pool (stenos.cpp:1151-1202). n_rows must be a
+    payloads (from the C++ batch row parser) over the mesh and decode
+    locally on each device's slice — the decompression fan-out of the
+    reference's thread pool (stenos.cpp:1151-1202). n_rows must be a
     multiple of the mesh size (callers pad by repeating the last row).
 
-    Returns the decoded words with the same global leading axis, sharded
-    until consumed."""
-    from ..ops.decode_pallas import decode_slabs_body
+    Returns (n_rows, nb*256*bpp) uint8, sharded until consumed."""
 
     def local(vb, po, rt):
-        return decode_slabs_body(vb, po, rt, bpp, snb, interpret)
+        return decode_slabs_jit(vb, po, rt, bpp, nb)
 
     f = jax.shard_map(
         local,
         mesh=mesh,
         in_specs=(P(axis), P(axis), P(axis)),
         out_specs=P(axis),
-        check_vma=False,
+        check_vma=False,  # the decoder's scan carry starts unvarying
     )
     sharding = NamedSharding(mesh, P(axis))
     args = [jax.device_put(np.ascontiguousarray(x), sharding)
@@ -81,33 +81,10 @@ def decode_slabs_sharded(mesh: Mesh, vbufs, plane_off, rowtab, bpp: int,
     return jax.jit(f)(*args)
 
 
-def encode_slabs_sharded(mesh: Mesh, data, bpp: int, block_level: int = 2,
-                         axis: str = "chunks", interpret: bool = False):
-    """Pallas mega-kernel under shard_map: each chip runs the VMEM-resident
-    encode kernel on its local superblocks; outputs stay sharded. This is
-    the production multi-chip path (the XLA pipeline variant above remains
-    for CPU meshes and parity tests)."""
-    from ..ops.encode_pallas import encode_slabs_body
-
-    def local(chunk):
-        return encode_slabs_body(chunk, bpp, block_level, interpret=interpret)
-
-    f = jax.shard_map(
-        local,
-        mesh=mesh,
-        in_specs=P(axis),
-        out_specs=(P(axis), P(axis), P(axis), P(axis)),
-        check_vma=False,  # pallas_call outputs don't carry vma metadata
-    )
-    sharding = NamedSharding(mesh, P(axis))
-    data = jax.device_put(data, sharding)
-    return jax.jit(f)(data)
-
-
 def sharded_compress_step(mesh: Mesh, data, bpp: int, axis: str = "chunks"):
     """One full sharded compress 'step' (used by dryrun_multichip and the
     scaling bench): local block-encode + collective size prefix-sum +
-    all-gather of the padded streams — the TPU translation of the
+    all-gather of the padded streams — the collective form of the
     reference's serial offset fix-up + parallel memcpy (stenos.cpp:977-1004).
 
     This is the GATHERED variant (padded rows replicated to every device);
@@ -122,7 +99,7 @@ def sharded_compress_step(mesh: Mesh, data, bpp: int, axis: str = "chunks"):
     def step(chunk):
         out, total, bsizes, fsizes = encode_superblocks_body(chunk, bpp, 2)
         # global ordered offsets of every superblock: ragged sizes -> psum /
-        # cumsum over the gathered size vector (all_gather rides ICI)
+        # cumsum over the gathered size vector
         all_totals = jax.lax.all_gather(total, axis, tiled=True)
         frame_sizes = all_totals + 4
         offsets = 8 + jnp.cumsum(frame_sizes) - frame_sizes
@@ -142,14 +119,14 @@ def sharded_compress_step(mesh: Mesh, data, bpp: int, axis: str = "chunks"):
 
 
 # ---------------------------------------------------------------------------
-# Ragged, size-aware multi-chip frame pipeline (SURVEY §2.7 TPU mapping:
-# "prefix-sum over compressed sizes + ragged all-gather"). Two dispatches:
+# Ragged, size-aware multi-device frame pipeline (SURVEY §2.7: "prefix-sum
+# over compressed sizes + ragged all-gather"). Two dispatches:
 #
-#   phase 1  encode_segments_sharded — each chip block-encodes its shard of
-#            superblocks AND assembles its own contiguous frame segment
+#   phase 1  encode_segments_sharded — each device block-encodes its shard
+#            of superblocks AND assembles its own contiguous frame segment
 #            locally (zero-masked row padding + per-row dynamic_update_slice
 #            copies: the reference's parallel memcpy round,
-#            stenos.cpp:992-1004, actually parallel across chips here).
+#            stenos.cpp:992-1004, actually parallel across devices here).
 #            The only collective is an all-gather of nd segment LENGTHS.
 #
 #   host     nd-scalar readback -> global segment offsets (the prefix-sum
@@ -157,32 +134,14 @@ def sharded_compress_step(mesh: Mesh, data, bpp: int, axis: str = "chunks"):
 #            stenos.cpp:977-990) -> bucketed shard width S sized from the
 #            MEASURED compressed bytes.
 #
-#   phase 2  assemble_frame_sharded — each chip places its segment at its
+#   phase 2  assemble_frame_sharded — each device places its segment at its
 #            global offset in a zeroed (nd*S,) contribution and ONE
-#            psum_scatter (reduce_scatter) leaves chip t holding frame
-#            bytes [t*S, (t+1)*S): per-chip ICI traffic ~= (nd-1)/nd of
-#            the COMPRESSED frame (vs the gathered variant's (nd-1)/nd of
-#            the PADDED/uncompressed bytes, replicated nd ways), and the
-#            output stays sharded instead of replicated.
+#            psum_scatter (reduce_scatter) leaves device t holding frame
+#            bytes [t*S, (t+1)*S): per-device traffic ~= (nd-1)/nd of the
+#            COMPRESSED frame (vs the gathered variant's (nd-1)/nd of the
+#            PADDED/uncompressed bytes, replicated nd ways), and the output
+#            stays sharded instead of replicated.
 # ---------------------------------------------------------------------------
-
-
-def _local_rows_with_headers(chunk, bpp: int, block_level: int,
-                             kernel: str, interpret: bool):
-    """Per-chip superblock records [method=1 | csize u24 | stream] and their
-    total lengths, from either the Pallas mega-kernel or the XLA pipeline."""
-    if kernel == "pallas":
-        from ..ops.encode_pallas import encode_slabs_body
-
-        rows, totals, _, _ = encode_slabs_body(chunk, bpp, block_level,
-                                               interpret=interpret)
-        return rows, totals
-    out, total, _, _ = encode_superblocks_body(chunk, bpp, block_level)
-    n_loc = out.shape[0]
-    hdr4 = jnp.stack(
-        [jnp.full(n_loc, 1, jnp.int32), total & 255,
-         (total >> 8) & 255, (total >> 16) & 255], axis=-1).astype(jnp.uint8)
-    return jnp.concatenate([hdr4, out], axis=-1), total + 4
 
 
 def _local_segment(rows, totals):
@@ -204,15 +163,10 @@ def _local_segment(rows, totals):
     return jax.lax.fori_loop(0, n_loc, body, seg), totals.sum()
 
 
-from functools import lru_cache
-
-
 @lru_cache(maxsize=64)
-def _encode_segments_fn(mesh: Mesh, bpp: int, block_level: int, axis: str,
-                        interpret: bool, kernel: str):
+def _encode_segments_fn(mesh: Mesh, bpp: int, block_level: int, axis: str):
     def step(chunk):
-        rows, totals = _local_rows_with_headers(chunk, bpp, block_level,
-                                                kernel, interpret)
+        rows, totals, _, _ = encode_records_body(chunk, bpp, block_level)
         seg, ln = _local_segment(rows, totals)
         lens = jax.lax.all_gather(ln.astype(jnp.int32)[None], axis,
                                   tiled=True)
@@ -225,18 +179,16 @@ def _encode_segments_fn(mesh: Mesh, bpp: int, block_level: int, axis: str,
 
 
 def encode_segments_sharded(mesh: Mesh, data, bpp: int, block_level: int = 2,
-                            axis: str = "chunks", interpret: bool = False,
-                            kernel: str = "pallas"):
+                            axis: str = "chunks"):
     """Phase 1 of the ragged pipeline. data: (n_sb, sb) with n_sb a multiple
     of the mesh size. Returns (segs, seg_lens):
-      segs     (nd, n_local*w) uint8, sharded P(axis) — chip-local
+      segs     (nd, n_local*w) uint8, sharded P(axis) — device-local
                contiguous frame segments (zero-padded tails), NOT gathered;
       seg_lens (nd,) int32, replicated — the only collective of this phase.
     """
     sharding = NamedSharding(mesh, P(axis))
     data = jax.device_put(data, sharding)
-    return _encode_segments_fn(mesh, bpp, block_level, axis, interpret,
-                               kernel)(data)
+    return _encode_segments_fn(mesh, bpp, block_level, axis)(data)
 
 
 @lru_cache(maxsize=64)
@@ -266,7 +218,7 @@ def assemble_frame_sharded(mesh: Mesh, segs, seg_offs, header, S: int,
     (header included); header: frame header bytes; S: bytes per shard
     (static; host picks a bucket >= (len(header)+sum+C_loc)/nd).
 
-    Returns frame (nd*S,) uint8 sharded P(axis): chip t holds global bytes
+    Returns frame (nd*S,) uint8 sharded P(axis): device t holds global bytes
     [t*S, (t+1)*S). np.asarray(frame) materializes it on the host.
     """
     hdr = jnp.asarray(np.asarray(header, np.uint8))
@@ -276,10 +228,10 @@ def assemble_frame_sharded(mesh: Mesh, segs, seg_offs, header, S: int,
 
 def ragged_traffic_model(n_sb: int, w: int, nd: int, S: int,
                          C_loc: int) -> dict:
-    """Per-chip ICI bytes moved by each path's collectives (ring model:
-    an all-gather or reduce_scatter of a B-byte global buffer moves
-    (nd-1)/nd * B bytes through each chip). The scaling bench records this
-    next to the measured wall times."""
+    """Per-device interconnect bytes moved by each path's collectives
+    (ring model: an all-gather or reduce_scatter of a B-byte global buffer
+    moves (nd-1)/nd * B bytes through each device). The scaling bench
+    records this next to the measured wall times."""
     gathered = (nd - 1) / nd * (n_sb * w)          # all_gather(padded rows)
     ragged = (nd - 1) / nd * (nd * S) + 4 * nd     # reduce_scatter + lens
     return {

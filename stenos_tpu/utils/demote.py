@@ -1,16 +1,10 @@
-"""One-shot demotion warnings (VERDICT r3 item 10).
+"""One-shot warnings for decisions the caller should see.
 
-Every graceful-degradation ladder in the package (Pallas -> XLA -> numpy,
-device entropy decode -> host libzstd, mesh -> single-chip) must say so the
-FIRST time it demotes in a process: a silently demoted kernel looks like a
-perf regression with no visible cause (round 3's decode-kernel v4 vanished
-from the bench artifact exactly this way). Correctness is unaffected —
-the ladders exist on purpose (reference analog: stenos.cpp:681-753's
-block -> zstd -> memcpy decompress dispatch) — but the demotion itself is
-observable state the operator needs.
+frame.compress_generic warns once when a time budget is below the
+measured warm floor of its backend: the call still runs, but the budget
+cannot be met, and saying so beats a silent overshoot.
 
-Set STENOS_SILENT=1 to suppress (e.g. perf A/B harnesses that demote on
-purpose).
+Set STENOS_SILENT=1 to suppress.
 """
 
 import os
@@ -20,16 +14,14 @@ _seen: set = set()
 
 
 class DemotionWarning(UserWarning):
-    """A compute path demoted to a slower fallback tier."""
+    """A request the chosen path cannot honour (e.g. an unmeetable time
+    budget)."""
 
 
-def warn_once(key: str, msg: str, exc: BaseException | None = None) -> None:
-    """Emit one DemotionWarning per (process, key). `exc` is appended so the
-    root cause (e.g. a Mosaic lowering error) survives into the warning."""
+def warn_once(key: str, msg: str) -> None:
+    """Emit one DemotionWarning per (process, key)."""
     if key in _seen or os.environ.get("STENOS_SILENT"):
         return
     _seen.add(key)
-    if exc is not None:
-        msg = f"{msg} [{type(exc).__name__}: {exc}]"
-    warnings.warn(f"stenos-tpu demotion: {msg}", DemotionWarning,
+    warnings.warn(f"stenos-tpu: {msg}", DemotionWarning,
                   stacklevel=3)

@@ -22,7 +22,8 @@ class Timer:
 @contextlib.contextmanager
 def profile_trace(logdir: str):
     """Wrap a region in a jax.profiler trace (TensorBoard-compatible) —
-    the TPU-side observability counterpart of the reference's bench timer."""
+    the device-side observability counterpart of the reference's bench
+    timer."""
     import jax
 
     jax.profiler.start_trace(logdir)

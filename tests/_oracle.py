@@ -1,20 +1,39 @@
-"""ctypes binding to the C++ reference library (built from /root/reference).
+"""ctypes binding to the C++ reference library, built from the sources in
+the directory named by STENOS_REFERENCE_DIR.
 
 Used ONLY by tests/benches as a correctness oracle: golden frames, interop
 (our decoder on reference frames, reference decoder on our frames) and
-compressed-size parity. The TPU framework itself never depends on this.
+compressed-size parity. The framework itself never depends on this. Where
+the sources are absent, the parity tests compare against the committed
+digests in tests/data/parity_digests.json instead (tests/_parity_cases.py).
 """
 
 import ctypes
+import glob
+import hashlib
 import os
 import subprocess
 import tempfile
 
-_REF = "/root/reference"
 _LIB = None
 
 
+def _sources():
+    ref = os.environ.get("STENOS_REFERENCE_DIR", "")
+    if not ref:
+        return ref, []
+    return ref, sorted(glob.glob(os.path.join(ref, "stenos/internal/*.cpp")))
+
+
+def available() -> bool:
+    """True when the reference sources are present (the oracle can run)."""
+    return bool(_sources()[1])
+
+
 def _build(libpath: str) -> None:
+    ref, srcs = _sources()
+    if not srcs:
+        raise RuntimeError("no reference sources: set STENOS_REFERENCE_DIR")
     os.makedirs(os.path.dirname(libpath), exist_ok=True)
     with tempfile.TemporaryDirectory() as td:
         cfg = os.path.join(td, "stenos_config.h")
@@ -24,31 +43,37 @@ def _build(libpath: str) -> None:
                 "#define STENOS_VERSION_MAJOR 0\n#define STENOS_VERSION_MINOR 2\n"
                 '#define STENOS_VERSION "0.2"\n#endif\n'
             )
-        import glob
-
-        srcs = sorted(glob.glob(os.path.join(_REF, "stenos/internal/*.cpp")))
+        tmp = f"{libpath}.tmp.{os.getpid()}.so"
         cmd = (
             ["g++", "-O2", "-march=native", "-std=c++14", "-DNDEBUG", "-shared", "-fPIC",
-             f"-I{td}", f"-I{_REF}", "-DSTENOS_BUILD_SHARED_LIBRARY"]
+             f"-I{td}", f"-I{ref}", "-DSTENOS_BUILD_SHARED_LIBRARY"]
             + srcs
-            + ["-lzstd", "-o", libpath]
+            + ["-lzstd", "-o", tmp]
         )
         subprocess.run(cmd, check=True, capture_output=True)
+        os.replace(tmp, libpath)
 
 
 def get_lib():
-    """Build (if needed) and load the reference shared library."""
+    """Build (if needed) and load the reference shared library. Raises when
+    the sources are absent or the library exports no stenos API."""
     global _LIB
     if _LIB is not None:
         return _LIB
-    libpath = os.path.join(
-        os.environ.get("XDG_CACHE_HOME", os.path.expanduser("~/.cache")),
-        "stenos_oracle",
-        "libstenos_oracle.so",
-    )
+    _, srcs = _sources()
+    if not srcs:
+        raise RuntimeError("no reference sources: set STENOS_REFERENCE_DIR")
+    h = hashlib.sha256()
+    for s in srcs:
+        with open(s, "rb") as f:
+            h.update(f.read())
+    libpath = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", f"stenos_oracle_{h.hexdigest()[:16]}.so")
     if not os.path.exists(libpath):
         _build(libpath)
     lib = ctypes.CDLL(libpath)
+    if not hasattr(lib, "stenos_compress"):
+        raise RuntimeError(f"{libpath} exports no stenos_compress")
     lib.stenos_compress.restype = ctypes.c_size_t
     lib.stenos_compress.argtypes = [
         ctypes.c_void_p, ctypes.c_size_t, ctypes.c_size_t,

@@ -1,8 +1,8 @@
-"""Pallas decode mega-kernel parity (interpret mode) + batched C parser.
+"""XLA slab decoders (explicit and derive index) + batched C parser.
 
 Inputs come from the batched native row parser (stn_parse_rows_batch); the
-kernel's output must reproduce the original bytes for frames produced by the
-(reference-bit-exact) host compressor.
+decoders' output must reproduce the original bytes for frames produced by
+the (reference-bit-exact) host compressor.
 """
 
 import numpy as np
@@ -11,15 +11,10 @@ import pytest
 import jax
 
 from stenos_tpu import frame as fr
+from stenos_tpu.engine_jax import decode_slabs_derive_jit, decode_slabs_jit
 from stenos_tpu.native import lib as native
-from stenos_tpu.ops.decode_pallas import decode_slabs_body
 
 from conftest import gen_elements
-
-pytestmark = [
-    pytest.mark.skipif(native is None, reason="no native runtime"),
-    pytest.mark.usefixtures("no_persistent_cache"),
-]
 
 
 @pytest.mark.parametrize("bpp", [2, 3, 4, 8])
@@ -38,10 +33,9 @@ def test_decode_kernel_roundtrip(rng, bpp, kind):
                                     row_bytes)
         assert not isinstance(r, int), r
         vbufs, plane_off, rowtab, _vlens = r
-        words = decode_slabs_body(
+        got = np.asarray(decode_slabs_jit(
             jax.numpy.asarray(vbufs), jax.numpy.asarray(plane_off),
-            jax.numpy.asarray(rowtab), bpp, nb, interpret=True)
-        got = np.ascontiguousarray(np.asarray(words)).view(np.uint8)
+            jax.numpy.asarray(rowtab), bpp, nb))
         assert got.reshape(-1).tobytes() == raw.tobytes(), (bpp, kind, nb,
                                                             level)
 
@@ -81,10 +75,8 @@ def test_batch_parser_matches_single(rng):
 @pytest.mark.parametrize("kind", ["sorted", "random", "same", "rle",
                                   "smallrange"])
 def test_decode_kernel_derive_index(rng, bpp, kind):
-    """Derive-index mode: the kernel reconstructs row records from the
+    """Derive-index mode: the decoder reconstructs row records from the
     stream's own header bytes; only plane offsets (+2-bit codes) are fed."""
-    from stenos_tpu.ops.decode_pallas import decode_slabs_derive_body
-
     for nb, level in ((1, 2), (3, 1), (8, 2)):
         sbytes = nb * 256 * bpp
         raw = np.frombuffer(
@@ -98,17 +90,14 @@ def test_decode_kernel_derive_index(rng, bpp, kind):
                                     row_bytes)
         assert not isinstance(r, int), r
         vbufs, plane_off, _rowtab, _vlens = r
-        words = decode_slabs_derive_body(
-            jax.numpy.asarray(vbufs), jax.numpy.asarray(plane_off),
-            bpp, nb, "bj", interpret=True)
-        got = np.ascontiguousarray(np.asarray(words)).view(np.uint8)
+        got = np.asarray(decode_slabs_derive_jit(
+            jax.numpy.asarray(vbufs), jax.numpy.asarray(plane_off), bpp, nb))
         assert got.reshape(-1).tobytes() == raw.tobytes(), (bpp, kind, nb,
                                                             level)
 
 
 def test_decode_kernel_derive_lz(rng):
     """Derive mode over a stream with inlined LZ blocks (code-1 planes)."""
-    from stenos_tpu.ops.decode_pallas import decode_slabs_derive_body
     from test_lz_adoption import lz_trigger_bytes
 
     bpp, nb = 4, 2
@@ -123,8 +112,6 @@ def test_decode_kernel_derive_lz(rng):
                                 row_bytes)
     assert not isinstance(r, int), r
     vbufs, plane_off, _rowtab, vlens = r
-    words = decode_slabs_derive_body(
-        jax.numpy.asarray(vbufs), jax.numpy.asarray(plane_off),
-        bpp, nb, "bj", interpret=True)
-    got = np.ascontiguousarray(np.asarray(words)).view(np.uint8)
+    got = np.asarray(decode_slabs_derive_jit(
+        jax.numpy.asarray(vbufs), jax.numpy.asarray(plane_off), bpp, nb))
     assert got.reshape(-1).tobytes() == raw.tobytes()

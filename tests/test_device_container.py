@@ -1,4 +1,4 @@
-"""Device-resident compressed array (cvector TPU mode)."""
+"""Device-resident compressed array (cvector device mode)."""
 
 import numpy as np
 import pytest

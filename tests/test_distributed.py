@@ -1,6 +1,6 @@
 """Multi-host (2-process) jax.distributed CPU cluster test.
 
-The reference's scale-out is a shared-memory thread pool; the TPU-native
+The reference's scale-out is a shared-memory thread pool; the device
 equivalent must also work across HOSTS (jax.distributed + a global mesh +
 shard_map collectives over DCN). This spawns two fresh processes, each
 owning 4 virtual CPU devices, forms a global 8-device mesh, runs the
@@ -50,8 +50,7 @@ def cb(index):
 
 
 garr = jax.make_array_from_callback(data.shape, sharding, cb)
-rows, sizes, offs = _sharded_encode_gather(mesh, garr, bpp, 2, "chunks",
-                                           True)
+rows, sizes, offs = _sharded_encode_gather(mesh, garr, bpp, 2, "chunks")
 # outputs are fully replicated; every process can read them
 rows_h = np.asarray(rows)
 sizes_h = np.asarray(sizes)

@@ -1,9 +1,9 @@
-"""Pallas encode mega-kernel parity vs the XLA pipeline (interpret mode).
+"""Index-emitting XLA encode (encode_records_body) vs the host parser.
 
-The XLA pipeline (encode_superblocks_body) is itself bit-exact vs the C++
-reference (tests/test_engine_jax.py, tests/test_frame_parity.py); this locks
-the Pallas kernel to the same bytes. Small shapes only — interpret mode is
-slow; the driver's TPU bench covers the compiled path at scale.
+The records must be the framed block streams of encode_superblocks_body
+(itself bit-exact vs the C++ reference, tests/test_engine_jax.py,
+tests/test_frame_parity.py), and the emitted decode index must equal the
+plane offsets and codes the native parser reads back from those records.
 """
 
 import numpy as np
@@ -11,8 +11,9 @@ import pytest
 
 import jax
 
-from stenos_tpu.engine_jax import encode_superblocks_body
-from stenos_tpu.ops.encode_pallas import encode_slabs_body, slab_nb
+from stenos_tpu.engine_jax import (JaxEngine, encode_records_body,
+                                   encode_superblocks_body)
+from stenos_tpu.native import lib as native
 
 from conftest import gen_elements
 
@@ -30,23 +31,40 @@ def test_kernel_matches_xla(rng, bpp, kind):
         out0, tot0, bs0, fs0 = encode_superblocks_body(
             jax.numpy.asarray(batch), bpp, level)
         out0, tot0 = np.asarray(out0), np.asarray(tot0)
-        bs0, fs0 = np.asarray(bs0), np.asarray(fs0)
-        rows, tot1, bs1, fs1 = encode_slabs_body(
-            jax.numpy.asarray(batch), bpp, level, interpret=True)
-        rows, tot1 = np.asarray(rows), np.asarray(tot1)
-        assert (np.asarray(bs1) == bs0).all()
-        assert (np.asarray(fs1) == fs0).all()
+        rows, tot1, bs1, fs1, index = encode_records_body(
+            jax.numpy.asarray(batch), bpp, level, with_index=True)
+        rows, tot1, index = np.asarray(rows), np.asarray(tot1), \
+            np.asarray(index)
+        assert (np.asarray(bs1) == np.asarray(bs0)).all()
+        assert (np.asarray(fs1) == np.asarray(fs0)).all()
         for i in range(n_sb):
             want = (bytes([1]) + int(tot0[i]).to_bytes(3, "little")
                     + bytes(out0[i][: tot0[i]]))
-            got = bytes(rows[i][: tot1[i]])
-            assert want == got, (bpp, kind, nb, level, i)
+            rec = bytes(rows[i][: tot1[i]])
+            assert want == rec, (bpp, kind, nb, level, i)
+            # the index is what the host parser reads from the record
+            # (record-relative: +4 header bytes; codes in bits 24-25)
+            r = native.parse_rows_batch(rec, bpp, sbytes, [4],
+                                        [len(rec) - 4], len(rec) + 512)
+            assert not isinstance(r, int), r
+            po = r[1][0]
+            assert ((index[i] & 0xFFFFFF) == (po & 0xFFFFFF) + 4).all()
+            assert ((index[i] >> 24) == (po >> 24)).all(), (bpp, kind, nb)
 
 
-def test_slab_nb():
-    assert slab_nb(128) == 128
-    assert slab_nb(192) == 192
-    assert slab_nb(256) == 128
-    assert slab_nb(512) == 128
-    assert slab_nb(170) == 170
-    assert slab_nb(340) == 170
+def test_encode_rounds_match_single_dispatch(rng, monkeypatch):
+    """JaxEngine.encode_batch cuts a batch into ROUND_BYTES rounds; the
+    per-superblock results must not depend on the cut."""
+    import stenos_tpu.engine_jax as ej
+
+    bpp, sb, n_sb = 4, 256 * 4 * 2, 5
+    data = np.frombuffer(gen_elements(rng, bpp, n_sb * sb // bpp + 7,
+                                      "sorted"), np.uint8)
+    one = JaxEngine().encode_batch(data, bpp, sb)
+    monkeypatch.setattr(ej, "ROUND_BYTES", 2 * sb)
+    cut = JaxEngine().encode_batch(data, bpp, sb)
+    assert len(one) == len(cut) == n_sb + 1 and cut[-1] is None
+    for a, b in zip(one[:-1], cut[:-1]):
+        assert a[1] == b[1]
+        assert bytes(a[0][: a[1]]) == bytes(b[0][: b[1]])
+        assert (a[2] == b[2]).all() and (a[3] == b[3]).all()

@@ -45,13 +45,12 @@ def test_batched_frame_decode(rng):
     assert out is not None and out.tobytes() == data
 
 
-def test_shape_bucketed_batch_identical(rng):
-    """STENOS_SHAPE_BUCKETS=1 (production serving: bounded compiled-shape
-    set across input sizes) must produce byte-identical frames to the
-    single-dispatch default."""
-    import os
-
+def test_shape_bucketed_batch_identical(rng, monkeypatch):
+    """Frames must not depend on how JaxEngine.encode_batch cuts the input
+    into ROUND_BYTES dispatch rounds (bounded device memory and compiled
+    shapes): a tiny round size gives the one-round frame byte for byte."""
     import stenos_tpu as st
+    import stenos_tpu.engine_jax as ej
     from stenos_tpu.engine_jax import JaxEngine
 
     from conftest import gen_elements
@@ -59,10 +58,7 @@ def test_shape_bucketed_batch_identical(rng):
     data = gen_elements(rng, 4, 700_000, "sorted")
     eng = JaxEngine()
     f0 = st.compress(np.frombuffer(data, np.uint8), 4, 2, engine=eng)
-    os.environ["STENOS_SHAPE_BUCKETS"] = "1"
-    try:
-        f1 = st.compress(np.frombuffer(data, np.uint8), 4, 2, engine=eng)
-    finally:
-        os.environ.pop("STENOS_SHAPE_BUCKETS", None)
+    monkeypatch.setattr(ej, "ROUND_BYTES", 3 * 131072)
+    f1 = st.compress(np.frombuffer(data, np.uint8), 4, 2, engine=eng)
     assert f0 == f1
     assert st.decompress(f1, 4).tobytes() == data

@@ -101,7 +101,7 @@ def test_device_path_routes_runny_blocks(rng):
 
     a = np.repeat(rng.integers(0, 256, 4000),
                   rng.integers(20, 90, 4000)).astype(np.uint8)[: 2 * 131072]
-    frame = encode_frame_device(a, interpret=True)
+    frame = encode_frame_device(a)
     back = zstd_host.decompress(frame, len(a) + 16)
     assert back == a.tobytes()
     assert len(frame) < len(a) // 8

@@ -84,7 +84,7 @@ def test_foreign_literals_decode_on_device(level, monkeypatch):
 
     monkeypatch.setattr(lib, "huf_lits", spy_lits)
     monkeypatch.setattr(lib, "huf_anchors", spy_anch)
-    out = dd.decode_payload_device(payload, len(data), interpret=True)
+    out = dd.decode_payload_device(payload, len(data))
     assert out is not None, "fell back to host"
     assert np.asarray(out).tobytes() == data
     assert calls["huf_anchors"] > 0, "anchor path never engaged"
@@ -100,6 +100,6 @@ def test_foreign_mixed_with_rle_and_raw_blocks():
              b"z" * 50_000]
     data = b"".join(parts)
     payload = zstd.ZstdCompressor(level=3).compress(data)
-    out = dd.decode_payload_device(payload, len(data), interpret=True)
+    out = dd.decode_payload_device(payload, len(data))
     assert out is not None
     assert np.asarray(out).tobytes() == data

@@ -2,54 +2,51 @@
 
 Mirrors the reference codec sweep (tests_comp_decomp.cpp) with the added
 requirement that compressed frames are byte-identical, and both decoders
-accept each other's frames.
+accept each other's frames. Every frame is compared with its committed
+digest (tests/_parity_cases.py); with the reference present
+(STENOS_REFERENCE_DIR), with the reference's own frame too.
 """
 
-import numpy as np
 import pytest
 
 import stenos_tpu as st
-import _oracle as oracle
-from conftest import gen_elements
+import _parity_cases as pc
+from _parity_cases import ALL_BPP, KINDS, MID_LEVELS, sha
 
 
-# full element-size sweep like the reference (tests_comp_decomp.cpp:181-216
-# sweeps 1-15; we add 16): the format's interesting corners live at the odd
-# widths (5,6,7,9,10,11,13,14,15)
-ALL_BPP = list(range(1, 17))
+def _check(key, data, bpp, level, ref, digests):
+    mine = st.compress(data, bpp, level)
+    assert sha(mine) == digests["frames"][key], key
+    assert st.decompress(mine, bpp).tobytes() == data
+    if ref is not None:
+        r = ref.compress(data, bpp, level)
+        assert mine == r, key
+        assert st.decompress(r, bpp).tobytes() == data
+        assert ref.decompress(mine, bpp, len(data)) == data
+    return mine
 
 
-@pytest.mark.parametrize("kind", ["sorted", "random", "same", "rle", "smallrange"])
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("bpp", ALL_BPP)
-def test_frame_bit_exact(rng, kind, bpp):
-    for ne in [0, 1, 100, 5000, 70001]:
-        for level in [0, 1, 2, 5, 9]:
-            data = gen_elements(rng, bpp, ne, kind)
-            ref = oracle.compress(data, bpp, level)
-            mine = st.compress(data, bpp, level)
-            assert mine == ref, (kind, bpp, ne, level)
-            assert st.decompress(ref, bpp).tobytes() == data
-            assert oracle.decompress(mine, bpp, len(data)) == data
+def test_frame_bit_exact(kind, bpp, ref, digests):
+    for key, data, level in pc.bit_exact_cases(kind, bpp):
+        _check(key, data, bpp, level, ref, digests)
 
 
-@pytest.mark.parametrize("level", [3, 4, 6, 7, 8])
+@pytest.mark.parametrize("level", MID_LEVELS)
 @pytest.mark.parametrize("bpp", ALL_BPP)
-def test_frame_bit_exact_mid_levels(rng, level, bpp):
+def test_frame_bit_exact_mid_levels(level, bpp, ref, digests):
     """Mid levels exercise the superblock shift growth, the transposed-LZ
     estimators and the higher zstd levels of the decision tree."""
-    for kind in ["sorted", "random", "rle"]:
-        for ne in [5000, 70001]:
-            data = gen_elements(rng, bpp, ne, kind)
-            ref = oracle.compress(data, bpp, level)
-            mine = st.compress(data, bpp, level)
-            assert mine == ref, (kind, bpp, ne, level)
-            assert st.decompress(ref, bpp).tobytes() == data
-            assert oracle.decompress(mine, bpp, len(data)) == data
+    for key, data, level in pc.mid_level_cases(level, bpp):
+        _check(key, data, bpp, level, ref, digests)
 
 
 def test_exact_superblock_multiple_decodes(rng):
     """The reference decoder rejects exact superblock multiples
     (stenos.cpp:1131 latent bug); our decoder must handle them."""
+    from conftest import gen_elements
+
     data = gen_elements(rng, 4, 131072 // 4, "sorted")
     assert len(data) == 131072
     frame = st.compress(data, 4, 1)
@@ -61,6 +58,8 @@ def test_exact_superblock_multiple_decodes(rng):
 
 
 def test_get_info(rng):
+    from conftest import gen_elements
+
     data = gen_elements(rng, 4, 100000, "sorted")
     frame = st.compress(data, 4, 3)
     dsize, sb, hlen = st.get_info(frame, 4)
@@ -69,12 +68,14 @@ def test_get_info(rng):
     assert sb == st.super_block_size(1024) << 1  # level 3 -> shift 1
 
 
-def test_bound():
-    for n in [0, 1, 1000, 65792, 65793, 10**7]:
-        assert st.compress_bound(n) == oracle.bound(n)
+def test_bound(ref, digests):
+    for n in pc.BOUND_SIZES:
+        assert st.compress_bound(n) == digests["bound"][str(n)]
+        if ref is not None:
+            assert st.compress_bound(n) == ref.bound(n)
 
 
-def test_lz_table_persists_across_blocks():
+def test_lz_table_persists_across_blocks(ref, digests):
     """Match-rich data whose LZ escapes depend on the hash table carrying
     over BETWEEN blocks — and, at level 1, between SUPERBLOCKS: the
     reference's table is a per-iteration stack slot that survives its
@@ -82,33 +83,16 @@ def test_lz_table_persists_across_blocks():
     the whole frame (found by tools/fuzz_parity.py; NOTES.md). The table
     is frame-scoped at level 1 here, so multi-superblock frames must be
     bit-exact too."""
-    rng = np.random.default_rng(5262529557974360290)
-    pool = rng.integers(0, 64, (37, 64), np.uint8)
-    for bpp, n_sb in ((4, 1), (8, 1), (16, 3)):
-        sb = st.super_block_size(256 * bpp)
-        n = sb * n_sb + 1792
-        idx = rng.integers(0, 37, n // 64 + 1)
-        data = pool[idx].reshape(-1)[:n].tobytes()
-        mine = st.compress(np.frombuffer(data, np.uint8), bpp, 1)
-        ref = oracle.compress(data, bpp, 1)
-        assert mine == ref, (bpp, len(mine), len(ref))
-        assert st.decompress(mine, bpp).tobytes() == data
+    for key, data, bpp in pc.lz_table_cases():
+        _check(key, data, bpp, 1, ref, digests)
 
 
-def test_lz_budget_covers_partial_tail():
+def test_lz_budget_covers_partial_tail(ref, digests):
     """A short superblock (one full block + partial tail): the LZ escape's
     dst-room precondition must budget the SUPERBLOCK's total input size
     (the reference passes it as dst_size, stenos.cpp:547) — budgeting only
     the full-block region suppressed the attempt and the frame fell back
     to COPY, 8% larger than the reference (fuzz seed 3428548311448695019)."""
-    rng = np.random.default_rng(3428548311448695019)
-    pool = rng.integers(0, 64, (37, 64), np.uint8)
-    bpp = 16
-    n = 4096 + 1792  # 1 full block + partial, < one superblock
-    idx = rng.integers(0, 37, n // 64 + 1)
-    data = pool[idx].reshape(-1)[:n].tobytes()
-    mine = st.compress(np.frombuffer(data, np.uint8), bpp, 1)
-    ref = oracle.compress(data, bpp, 1)
-    assert mine == ref, (len(mine), len(ref))
+    key, data, bpp = pc.lz_tail_case()
+    mine = _check(key, data, bpp, 1, ref, digests)
     assert mine[8] == 1, "expected method BLOCK, not COPY"
-    assert st.decompress(mine, bpp).tobytes() == data

@@ -3,8 +3,8 @@
 The parser inlines BLOCK_LZ/BLOCK_COPY blocks expanded to the full 256*bpp
 shuffled planes, so the VIRTUAL stream can be longer than the compressed
 record (vlens > csize). These tests pin the consumers that must honor that:
-device_container adoption + re-serialization, and the slab-splitting decode
-path (_reslab_parsed). Reference behavior: block_compress.h:1209-1223 (LZ
+device_container adoption + re-serialization, and the explicit-index slab
+decoder. Reference behavior: block_compress.h:1209-1223 (LZ
 escape), stenos.cpp:681-753 (decode dispatch).
 """
 
@@ -74,10 +74,10 @@ def test_device_container_adopts_lz_frames(rng):
 
 
 def test_reslab_split_honors_virtual_length(rng):
-    """Slab-split decode (levels >= 3 shapes): the last slab must end at the
-    parser-reported virtual length, not csize."""
-    from stenos_tpu.engine_jax import _reslab_parsed
-    from stenos_tpu.ops.decode_pallas import decode_slabs_body
+    """LZ blocks are inlined expanded by the parser, so the virtual stream
+    is longer than the record (vlens > csize): the explicit decoder must
+    read the whole virtual stream, not csize bytes of it."""
+    from stenos_tpu.engine_jax import decode_slabs_jit
 
     bpp, shift = 4, 2
     sb = 256 * bpp << shift  # nb = 4
@@ -91,11 +91,6 @@ def test_reslab_split_honors_virtual_length(rng):
     assert not isinstance(r, int), r
     vbufs, po, rt, vlens = r
     assert (np.asarray(vlens) > np.asarray(csizes)).any()
-    snb = nb // 2
-    r3 = _reslab_parsed((vbufs, po, rt), vlens, bpp, nb, snb)
-    assert r3 is not None
-    vb, po2, rt2 = r3
-    words = decode_slabs_body(jnp.asarray(vb), jnp.asarray(po2),
-                              jnp.asarray(rt2), bpp, snb, interpret=True)
-    got = np.ascontiguousarray(np.asarray(words)).view(np.uint8)
+    got = np.asarray(decode_slabs_jit(jnp.asarray(vbufs), jnp.asarray(po),
+                                      jnp.asarray(rt), bpp, nb))
     assert got.reshape(-1).tobytes() == raw.tobytes()

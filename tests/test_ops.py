@@ -1,4 +1,4 @@
-"""Unit tests for the core TPU primitives: log-shift compaction/expansion
+"""Unit tests for the core vector primitives: log-shift compaction/expansion
 (ops/compact.py), fill-left propagation, bit packing, filters."""
 
 import numpy as np

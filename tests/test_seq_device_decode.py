@@ -1,11 +1,11 @@
 """Device decode of sequence-bearing zstd payloads (tier 2 of
-entropy/device_decode.py): host O(nseq) index work + TPU bulk match
+entropy/device_decode.py): host O(nseq) index work + device bulk match
 reconstruction. Reference behavior matched: stenos.cpp:694-753 decodes
 every method-2/3/4/5 payload through full zstd (zstd_wrapper.h:59-90) —
 here the bulk bytes stay on device.
 
 Runs on the CPU backend (conftest forces JAX_PLATFORMS=cpu, 8 virtual
-devices); run_programs is pure XLA so the path is identical on TPU.
+devices); run_programs is pure XLA, the same program the GPU runs.
 """
 
 import os
@@ -15,20 +15,12 @@ import pytest
 import zstandard as zstd
 
 from stenos_tpu.entropy.device_decode import decode_payload_device
-from stenos_tpu.native import lib
-
-pytestmark = pytest.mark.skipif(lib is None, reason="native runtime missing")
-
-# this file covers the FULL device route: FSE sequence decode on the
-# (interpret-mode) kernel + device match reconstruction. The rest of the
-# suite defaults to the host twin (conftest sets STENOS_DEVICE_SEQS=0).
-os.environ["STENOS_DEVICE_SEQS"] = "1"
 
 FULL = bool(os.environ.get("STENOS_FULL_GRID"))
 
 
 def _check(payload: bytes, data: bytes):
-    out = decode_payload_device(payload, len(data), interpret=True)
+    out = decode_payload_device(payload, len(data))
     assert out is not None, "fell back to host"
     assert bytes(np.asarray(out).tobytes()) == data
 
@@ -114,8 +106,7 @@ def test_mixed_frame_device_literals():
     # stays mixed (the seq-anchor path has its own test below)
     os.environ["STENOS_SEQ_ANCHORS"] = "0"
     try:
-        f = bytes(encode_frame_device(np.frombuffer(data, np.uint8),
-                                      interpret=True))
+        f = bytes(encode_frame_device(np.frombuffer(data, np.uint8)))
     finally:
         os.environ.pop("STENOS_SEQ_ANCHORS", None)
     _, entries = split_sidecar(f)
@@ -126,9 +117,9 @@ def test_mixed_frame_device_literals():
     calls = []
     orig = dd._batch_decode_streams
 
-    def spy(payload, jobs, interpret):
+    def spy(payload, jobs):
         calls.append(len(jobs))
-        return orig(payload, jobs, interpret)
+        return orig(payload, jobs)
 
     dd._batch_decode_streams = spy
     try:
@@ -170,8 +161,7 @@ def test_seq_block_device_literals():
     pool = rng.integers(0, 40, (400, 64), np.uint8)
     idx = rng.integers(0, 400, 4096 + 12)
     data = pool[idx].reshape(-1).tobytes()  # 2 full blocks + 768 B tail
-    f = bytes(encode_frame_device(np.frombuffer(data, np.uint8),
-                                  interpret=True))
+    f = bytes(encode_frame_device(np.frombuffer(data, np.uint8)))
     fe, entries = split_sidecar(f)
     assert entries is not None
     _, blocks, _ = parse_frame(f, fe)
@@ -185,9 +175,9 @@ def test_seq_block_device_literals():
     calls = []
     orig = dd._batch_decode_streams
 
-    def spy(payload, jobs, interpret):
+    def spy(payload, jobs):
         calls.append(len(jobs))
-        return orig(payload, jobs, interpret)
+        return orig(payload, jobs)
 
     dd._batch_decode_streams = spy
     try:

@@ -1,4 +1,4 @@
-"""Multi-chip sharding tests on the virtual 8-device CPU mesh."""
+"""Multi-device sharding tests on the virtual 8-device CPU mesh."""
 
 import numpy as np
 import pytest
@@ -66,14 +66,17 @@ def test_graft_dryrun():
 
 
 @needs_mesh
-@pytest.mark.parametrize("kernel", ["pallas", "xla"])
-def test_ragged_sharded_frame_matches_single(rng, kernel):
-    """The ragged pipeline (local segment assembly + reduce_scatter of
-    frame shards) produces a frame byte-identical to the single-chip device
-    path, stays SHARDED over the mesh, and its collective traffic model is
-    proportional to the compressed (not padded) bytes."""
-    from stenos_tpu.parallel import (compress_device_sharded, make_mesh,
-                                     ragged_traffic_model)
+@pytest.mark.parametrize("pipeline", ["ragged", "gathered"])
+def test_ragged_sharded_frame_matches_single(rng, pipeline):
+    """Both sharded pipelines — ragged (local segment assembly +
+    reduce_scatter of frame shards, output SHARDED over the mesh) and
+    gathered (all_gather of padded rows + one-device assembly) — produce a
+    frame byte-identical to the single-device path, and the ragged
+    collective traffic model is proportional to the compressed (not
+    padded) bytes."""
+    from stenos_tpu.parallel import (compress_device_sharded,
+                                     compress_device_sharded_gathered,
+                                     make_mesh, ragged_traffic_model)
     from stenos_tpu.engine_jax import compress_frame_device_jit
 
     bpp = 4
@@ -82,12 +85,14 @@ def test_ragged_sharded_frame_matches_single(rng, kernel):
     data = gen_elements(rng, bpp, (n_sb * sb) // bpp, "sorted")
     batch = np.frombuffer(data, np.uint8).reshape(n_sb, sb)
     mesh = make_mesh(8)
-    f_r, l_r = compress_device_sharded(batch, bpp, 1, mesh, interpret=True,
-                                       kernel=kernel)
-    # output is sharded over the mesh, not replicated
-    from jax.sharding import PartitionSpec
+    if pipeline == "ragged":
+        f_r, l_r = compress_device_sharded(batch, bpp, 1, mesh)
+        # output is sharded over the mesh, not replicated
+        from jax.sharding import PartitionSpec
 
-    assert f_r.sharding.spec == PartitionSpec("chunks")
+        assert f_r.sharding.spec == PartitionSpec("chunks")
+    else:
+        f_r, l_r = compress_device_sharded_gathered(batch, bpp, 1, mesh)
     f_1, l_1 = compress_frame_device_jit(batch, bpp, 1)
     assert int(l_r) == int(l_1)
     assert (np.asarray(f_r)[: int(l_r)]
@@ -104,10 +109,12 @@ def test_ragged_sharded_frame_matches_single(rng, kernel):
 
 @needs_mesh
 def test_sharded_pallas_encode_matches_single(rng):
-    """The Pallas mega-kernel under shard_map (interpret mode on the CPU
-    mesh) produces the same records as the XLA pipeline."""
-    from stenos_tpu.parallel import make_mesh, encode_slabs_sharded
+    """The record encode under shard_map with all-gathered rows, sizes and
+    offsets (the gathered pipeline's phase 1) produces the same records as
+    the single-device XLA encode."""
     from stenos_tpu.engine_jax import encode_superblocks_jit
+    from stenos_tpu.parallel import make_mesh
+    from stenos_tpu.parallel.api import _sharded_encode_gather
 
     bpp = 4
     sb = 256 * bpp * 2
@@ -116,17 +123,15 @@ def test_sharded_pallas_encode_matches_single(rng):
     batch = np.frombuffer(data, np.uint8).reshape(n_sb, sb)
 
     mesh = make_mesh(8)
-    rows, tot_s, bs_s, fs_s = encode_slabs_sharded(
-        mesh, batch, bpp, interpret=True)
-    out_1, tot_1, bs_1, fs_1 = encode_superblocks_jit(batch, bpp, 2)
+    rows, tot_s, offs = _sharded_encode_gather(mesh, batch, bpp, 2, "chunks")
+    out_1, tot_1, _, _ = encode_superblocks_jit(batch, bpp, 2)
     rows = np.asarray(rows)
     tot_s = np.asarray(tot_s)
     for i in range(n_sb):
         want = (bytes([1]) + int(tot_1[i]).to_bytes(3, "little")
                 + bytes(np.asarray(out_1[i])[: int(tot_1[i])]))
         assert bytes(rows[i][: tot_s[i]]) == want, i
-    assert (np.asarray(bs_s) == np.asarray(bs_1)).all()
-    assert (np.asarray(fs_s) == np.asarray(fs_1)).all()
+    assert (np.asarray(offs) == 8 + np.cumsum(tot_s) - tot_s).all()
 
 
 def test_public_mesh_compress(rng):
@@ -149,7 +154,7 @@ def test_public_mesh_compress(rng):
 def test_mesh_compress_bytes_equal_single_chip(rng, level, kind):
     """compress(..., mesh=...) runs the FULL decision tree (method
     selection + zstd entropy stage) per superblock, so the mesh frame is
-    byte-identical to the single-chip frame at every level — the reference
+    byte-identical to the single-device frame at every level — the reference
     thread pool parallelizes all methods (stenos.cpp:909-1016)."""
     import stenos_tpu as st
     from stenos_tpu import frame as fr

@@ -6,7 +6,7 @@ Each iteration draws (generator, bpp, level, size, dst slack) and checks:
   - decompress(ours) round-trips; the reference decodes our frame
   - tight dst budgets fail with the same error behavior as the reference
   - a random zstd frame (libzstd, random level) decodes through the
-    device entropy tiers bit-exact (interpret mode)
+    device entropy tiers bit-exact
 
 Complements the fixed grids in tests/ (reference test strategy,
 tests_comp_decomp.cpp:163-216) with random sizes including partial
@@ -15,9 +15,8 @@ blocks and superblock-boundary straddles.
 Usage: python tools/fuzz_parity.py [--seconds 600] [--seed 0]
 
 Keep --seconds <= ~700 per process and loop over seeds in a shell: the
-XLA:CPU JIT intermittently segfaults late in long single-process runs
-that compile many pallas-interpret programs (NOTES.md item 5 — the test
-suite contains the same issue with xdist per-file workers).
+XLA:CPU JIT intermittently segfaulted late in long single-process runs
+that compile many programs.
 """
 
 import argparse
@@ -62,8 +61,7 @@ def main():
     ap.add_argument("--one", type=int, default=None,
                     help="run exactly one iteration with this it_seed")
     ap.add_argument("--entropy-every", type=int, default=10,
-                    help="device entropy tier check every N iters (slow "
-                         "in interpret mode)")
+                    help="device entropy tier check every N iters")
     ap.add_argument("--engine-every", type=int, default=25,
                     help="device-engine-vs-host frame identity check "
                          "every N iters (0 = off)")
@@ -161,7 +159,7 @@ def main():
                     and nbytes > 1024):
                 zl = int(rng.integers(1, 20))
                 c = zstandard.ZstdCompressor(level=zl).compress(data)
-                out = decode_payload_device(c, len(data), interpret=True)
+                out = decode_payload_device(c, len(data))
                 if out is not None and bytes(
                         np.asarray(out).tobytes()) != data:
                     fails += 1

@@ -4,7 +4,7 @@
 Runs compress_generic under a grid of budgets on the live device engine
 and reports the overshoot distribution (elapsed - budget, positive side
 only). The reference claims <= ~1 ms overshoot on its thread pool
-(README.md:102-107, stenos.h:152-154); the TPU analog's bound is one
+(README.md:102-107, stenos.h:152-154); the device engine's bound is one
 shrinking round (25% of remaining budget at the conservative rate),
 which converges to the last round's dispatch time.
 
